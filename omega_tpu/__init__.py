@@ -1,13 +1,13 @@
-"""omega_tpu — a TPU-native ocean dynamical core.
+"""omega_tpu — an ocean dynamical core in JAX.
 
-A from-scratch JAX/Pallas implementation of the capabilities of E3SM-Project
+A from-scratch JAX implementation of the capabilities of E3SM-Project
 Omega (the Ocean Model for E3SM Global Applications): the layered nonlinear
 shallow-water equations plus tracer advection-diffusion, discretized with the
 TRiSK finite-volume scheme (Thuburn 2009 / Ringler 2010) on MPAS-format
 unstructured Voronoi meshes.
 
-Design (TPU-first, not a port):
-  * mesh elements -> sublanes, vertical layers -> lanes (8,128 tiling)
+Design (written for accelerators, not a port):
+  * fields are (elements, layers) arrays with the layer axis contiguous
   * all stencils are weighted gathers over static padded connectivity
   * SPMD via jax.sharding.Mesh + shard_map with precomputed halo index lists
   * host-side exact-rational time manager; device-side pure step functions

@@ -1,6 +1,6 @@
 """Auxiliary (diagnostic) variables, recomputed each RHS evaluation.
 
-TPU-native rewrite of ocn/AuxiliaryState.cpp:60-185 and the six aux-var
+Rewrite of ocn/AuxiliaryState.cpp:60-185 and the six aux-var
 groups under ocn/auxiliaryVars/. Each reference Kokkos kernel becomes a
 whole-array gather expression; XLA fuses the per-element-class sweeps the
 same way the reference fuses them into 6 kernel launches.

@@ -1,6 +1,6 @@
 """Equation of state: specific volume from T, S, p.
 
-TPU-native rewrite of ocn/Eos.h/.cpp: two EOS choices selected by config
+Rewrite of ocn/Eos.h/.cpp: two EOS choices selected by config
 (``Eos: EosType``) — a linear EOS and the Roquet et al. (2015, Ocean
 Modelling 90) 75-term polynomial TEOS-10 expansion for specific volume
 (the same published coefficient set the reference embeds, validated there

@@ -46,9 +46,7 @@ def _edge_fluxes(mesh, mass_flux, u, tracers):
 def fct_provisional(mesh: HorzMesh, h_old, h_new, u, tracers, dt,
                     flux_h_edge):
     """The low-order (monotone) provisional transported-diffused field
-    tr_td (steps 1-3 of fct_tracer_tendency) — split out so the fused
-    two-stage sphere kernel's fix submesh can advance stage by stage
-    (ops/patch_megastep.fct_patch_megastep_framed)."""
+    tr_td (steps 1-3 of fct_tracer_tendency)."""
     mass_flux = trisk.col(mesh, "edge_mask") * flux_h_edge * u
     f_lo, _ = _edge_fluxes(mesh, mass_flux, u, tracers)
     div_lo = trisk.div_cell(mesh, f_lo)                  # (L, C, K)

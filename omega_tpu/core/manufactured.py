@@ -1,6 +1,6 @@
 """Manufactured-solution forcing (Bishnu et al. 2024) for convergence tests.
 
-TPU-native rewrite of ocn/CustomTendencyTerms.h:34-84 / .cpp. The exact
+Rewrite of ocn/CustomTendencyTerms.h:34-84 / .cpp. The exact
 solution on a doubly periodic plane with flat bottom H0 and constant f is
     h(x,y,t)      = H0 + eta0 sin(kx x + ky y - omega t)
     u_east = v_north = eta0 cos(kx x + ky y - omega t)

@@ -1,6 +1,6 @@
 """Tendency (RHS) terms and their orchestration.
 
-TPU-native rewrite of ocn/TendencyTerms.h:26-492 and ocn/Tendencies.cpp.
+Rewrite of ocn/TendencyTerms.h:26-492 and ocn/Tendencies.cpp.
 Each reference per-element functor becomes a whole-array expression over
 (element, K) arrays; enable flags are static config so XLA compiles only
 the enabled terms. The three compute groups mirror the reference wrappers:

@@ -1,13 +1,13 @@
 """Vertical coordinate (p-star) computations.
 
-TPU-native rewrite of ocn/VertCoord.h/.cpp: per-column pressure (top-down
+Rewrite of ocn/VertCoord.h/.cpp: per-column pressure (top-down
 mass sum), z-height (bottom-up specific-volume sum), geopotential (with
 tidal-potential and self-attraction/loading hooks), and the p-star target
 layer thickness redistribution.
 
 The reference uses hierarchical Kokkos team scans per column
-(VertCoord.cpp:654-735); on TPU each becomes one `jnp.cumsum` along the
-lane (K) axis — the natural vectorization (SURVEY.md section 2.6: team
+(VertCoord.cpp:654-735); here each becomes one `jnp.cumsum` along the
+contiguous K axis — the natural vectorization (SURVEY.md section 2.6: team
 scans -> lax cumsum along K).
 
 Variable active-layer bounds (MinLayerCell/MaxLayerCell, VertCoord.h:85-106)

@@ -4,7 +4,7 @@ The reference is designed to run as an E3SM component — `MachEnv::init`
 accepts a coupler-supplied communicator (base/MachEnv.h:136-142) and the
 Omega-2 roadmap is the coupled configuration — but its own MCT/MOAB
 wiring does not exist yet (SURVEY.md section 2.5).  This module is the
-TPU-native equivalent of that component contract: a host "coupler"
+JAX equivalent of that component contract: a host "coupler"
 (atmosphere model, test harness, ESM driver) constructs an
 `OmegaComponent`, then alternates
 

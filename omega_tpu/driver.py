@@ -122,9 +122,8 @@ def _build_mesh(cfg: Config, directory: str) -> HorzMesh:
                     bottom_depth=g.get_float("BottomDepth", 4000.0),
                     lloyd_iters=g.get_int("LloydIters", 0))
                 # PatchLayout: renumber onto the 10 n x n rhombus
-                # lattice so the streaming stencils and the fused patch
-                # kernel (ops/patch_megastep.py) apply — the fast path
-                # for single-chip global runs
+                # lattice so the streaming patch stencils
+                # (ops/patch_stencil.py) apply to single-device runs
                 if g.get_bool("PatchLayout", False):
                     from omega_tpu.mesh.icos_patches import patch_icos_mesh
                     mesh = patch_icos_mesh(mesh, subdiv)
@@ -268,7 +267,7 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
     # --- Decomp: multi-device execution (Decomp group; the reference's
     # Decomp.DecompMethod/HaloWidth, base/Decomp.h:19-30). Method "auto"
     # keeps structured planar meshes on the structure-preserving row-band
-    # decomposition (conv fast path) and sends everything else — spheres,
+    # decomposition (roll fast path) and sends everything else — spheres,
     # file meshes, beta-planes — through the general SFC decomposition.
     nshards = 1
     decomp_method = "auto"
@@ -278,9 +277,9 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
         dc_ = config.get_group("Decomp")
         nshards = dc_.get_int("NShards", 1)
         decomp_method = dc_.get_str("Method", "auto").lower()
-        if decomp_method not in ("auto", "structured", "sfc", "patch"):
-            raise ConfigError(f"Decomp.Method must be auto|structured|sfc|"
-                              f"patch, got {decomp_method!r}")
+        if decomp_method not in ("auto", "structured", "sfc"):
+            raise ConfigError(f"Decomp.Method must be auto|structured|sfc, "
+                              f"got {decomp_method!r}")
         sharded_io = bool(dc_.get("ShardedIO", False)) and nshards > 1
         halo_width = dc_.get_int("HaloWidth", 3)
         if halo_width < 1:
@@ -740,6 +739,7 @@ def ocn_run(model: OceanModel, progress_every: int = 0) -> OceanModel:
     row-band decomposition over a jax device mesh: the state stays
     sharded across segments and is gathered only at IO boundaries."""
     import jax
+    import jax.numpy as jnp
 
     from omega_tpu.stepping.steppers import run_steps
 
@@ -765,34 +765,11 @@ def ocn_run(model: OceanModel, progress_every: int = 0) -> OceanModel:
 
         # the p-star post-phase is implemented on the general SFC
         # decomposition; under 'auto' just route there, and only an
-        # EXPLICIT patch/structured request errors (below)
+        # EXPLICIT structured request errors (below)
         pstar_on = getattr(model, "_pstar", None) is not None
 
-        use_patch = False
-        if not (pstar_on and model.decomp_method == "auto") and (
-                model.decomp_method == "patch"
-                or (model.decomp_method == "auto"
-                    and jax.default_backend() == "tpu")):
-            # patch-sphere fast path: whole rhombi per device, the fused
-            # FB kernel per shard, ppermute rings for the frame refresh
-            from omega_tpu.ops import patch_megastep as _pm
-            from omega_tpu.stepping.steppers import \
-                forward_backward_step as _fb
-            eligible = (getattr(mesh, "patch_key", 0) != 0
-                        and model.nshards in (2, 5, 10)
-                        and model.stepper is _fb
-                        and _pm.supported(mesh, cfg))
-            if eligible:
-                use_patch = True
-            elif model.decomp_method == "patch":
-                raise ConfigError(
-                    "Decomp.Method: patch needs a PatchLayout sphere mesh, "
-                    "NShards in (2, 5, 10), the forward-backward stepper "
-                    "and the flagship tendency configuration")
-
         use_structured = False
-        if not use_patch and not (pstar_on
-                                  and model.decomp_method == "auto") \
+        if not (pstar_on and model.decomp_method == "auto") \
                 and model.decomp_method in ("auto", "structured"):
             from omega_tpu.parallel import structured_shard as sshard
             try:
@@ -807,23 +784,13 @@ def ocn_run(model: OceanModel, progress_every: int = 0) -> OceanModel:
                     "Decomp: mesh not structured-shardable, using the "
                     "general SFC decomposition")
 
-        if pstar_on and (use_patch or use_structured):
+        if pstar_on and use_structured:
             raise ConfigError(
                 "VertCoord.PStarEnable under sharding uses the general "
                 "SFC decomposition (set Decomp.Method: sfc)")
 
         scatter = None
-        if use_patch:
-            from omega_tpu.parallel.patch_shard import \
-                make_patch_sharded_run
-            run_p = make_patch_sharded_run(mesh, cfg, model.nshards)
-            model._decomp = ("patch", None, dmesh)
-            model._gather = lambda st: st      # state stays global
-            if model.sharded_io:
-                get_logger().info("ShardedIO: not needed on the patch "
-                                  "path (IO sees global state)")
-                model.sharded_io = False
-        elif use_structured:
+        if use_structured:
             sstep = sshard.make_sharded_step(
                 ss, cfg, model.stepper, dmesh,
                 wind_stress=model.wind_stress)
@@ -909,29 +876,18 @@ def ocn_run(model: OceanModel, progress_every: int = 0) -> OceanModel:
                         st_.spec.name)
                     st_.spec.format = "hdf5"
 
-        if use_patch:
-            # wind rides global (C,) cell arrays; make_wind packs the
-            # stress into the plane lanes per segment inside run_p
-            model._scatter_wind = lambda w: w
+        @partial(jax.jit, static_argnums=2)
+        def segment_sharded(state, t0, nsteps, wind=None):
+            def body(carry, i):
+                st, t = carry
+                return (sstep(st, t, model.dt, wind),
+                        t + model.dt), None
+            (state, _), _ = jax.lax.scan(
+                body, (state, jnp.asarray(t0, model.state.h.dtype)), None,
+                length=nsteps)
+            return state
 
-            def segment_sharded(state, t0, nsteps, wind=None):
-                return run_p(state, t0, model.dt, nsteps,
-                             wind_stress=(model.wind_stress
-                                          if wind is None else wind))
-        else:
-            @partial(jax.jit, static_argnums=2)
-            def segment_sharded(state, t0, nsteps, wind=None):
-                def body(carry, i):
-                    st, t = carry
-                    return (sstep(st, t, model.dt, wind),
-                            t + model.dt), None
-                (state, _), _ = jax.lax.scan(
-                    body, (state, jnp_asarray(t0)), None, length=nsteps)
-                return state
-
-            import jax.numpy as _jnp
-            jnp_asarray = lambda t0: _jnp.asarray(t0, model.state.h.dtype)
-            model._scatter_wind = sstep.scatter_wind
+        model._scatter_wind = sstep.scatter_wind
 
     @partial(jax.jit, static_argnums=2)
     def segment(state, t0, nsteps, wind=None):
@@ -1052,12 +1008,14 @@ def main(argv=None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(prog="omega-tpu",
-                                description="TPU-native ocean model driver")
+                                description="Omega ocean model driver")
     p.add_argument("--config", default="omega.yml",
                    help="YAML config file (default: ./omega.yml)")
     p.add_argument("--dir", default=".", help="run directory")
     args = p.parse_args(argv)
 
+    from omega_tpu.infra.compile_cache import enable_compile_cache
+    enable_compile_cache()
     model = ocn_init(config_file=args.config, directory=args.dir)
     ocn_run(model, progress_every=100)
     ocn_finalize(model)

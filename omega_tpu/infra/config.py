@@ -21,8 +21,6 @@ import copy
 import re
 from typing import Any, Iterator, List, Optional
 
-import yaml
-
 from omega_tpu.infra.errors import ConfigError
 
 _SENTINEL = object()
@@ -57,6 +55,7 @@ class Config:
     # ---------------- construction ----------------
     @classmethod
     def from_yaml(cls, text: str, root: str = "Omega") -> "Config":
+        import yaml
         doc = _normalize(yaml.safe_load(text) or {})
         if root in doc:
             return cls(root, doc[root])
@@ -71,10 +70,10 @@ class Config:
     def write(self, path: str) -> None:
         """Write the full config back out (infra/Config.h:361-367)."""
         with open(path, "w") as f:
-            yaml.safe_dump({self.name: self._data}, f,
-                           default_flow_style=False, sort_keys=False)
+            f.write(self.to_yaml())
 
     def to_yaml(self) -> str:
+        import yaml
         return yaml.safe_dump({self.name: self._data},
                               default_flow_style=False, sort_keys=False)
 
@@ -220,71 +219,52 @@ class Config:
         return f"Config({self.name!r}, {len(self._data)} entries)"
 
 
-DEFAULT_CONFIG_YAML = """\
-Omega:
-  Timing:
-    Level: 2
-    AutoFence: true
-    TimingBarriers: false
-    PrintAllRanks: false
-  TimeIntegration:
-    CalendarType: No Leap
-    TimeStepper: Forward-Backward
-    TimeStep: 0000_00:10:00
-    StartTime: 0001-01-01_00:00:00
-    StopTime: 0001-01-01_02:00:00
-    RunDuration: none
-  Decomp:
-    HaloWidth: 3
-    DecompMethod: SFC
-  IO:
-    IODefaultFormat: NetCDF3
-  State:
-    NTimeLevels: 2
-  Advection:
-    FluxThicknessType: Center
-    FluxTracerType: Center
-  WindStress:
-    InterpType: Isotropic
-  VertCoord:
-    MovementWeightType: Uniform
-  Tendencies:
-    ThicknessFluxTendencyEnable: true
-    PVTendencyEnable: true
-    KETendencyEnable: true
-    SSHTendencyEnable: true
-    VelDiffTendencyEnable: true
-    ViscDel2: 1.0e3
-    VelHyperDiffTendencyEnable: true
-    ViscDel4: 1.2e11
-    DivFactor: 1.0
-    WindForcingTendencyEnable: false
-    Density0: 1026.0
-    BottomDragTendencyEnable: false
-    BottomDragCoeff: 0.0
-    TracerHorzAdvTendencyEnable: true
-    TracerDiffTendencyEnable: true
-    EddyDiff2: 10.0
-    TracerHyperDiffTendencyEnable: true
-    EddyDiff4: 0.0
-    UseCustomTendency: false
-    ManufacturedSolutionTendency: false
-  Tracers:
-    Base: [Temperature, Salinity]
-  Eos:
-    EosType: linear
-    Linear:
-      DRhoDT: -0.2
-      DRhoDS: 0.8
-      RhoT0S0: 1000.0
-  IOStreams: {}
-  ManufacturedSolution:
-    WavelengthX: 5.0e6
-    WavelengthY: 4.33013e6
-    Amplitude: 1.0
-"""
+# The built-in defaults (mirrors configs/Default.yml). Kept as Python data
+# so a run configured in code starts without a YAML parser installed.
+DEFAULT_CONFIG = {
+    "Timing": {"Level": 2, "AutoFence": True, "TimingBarriers": False,
+               "PrintAllRanks": False},
+    "TimeIntegration": {"CalendarType": "No Leap",
+                        "TimeStepper": "Forward-Backward",
+                        "TimeStep": "0000_00:10:00",
+                        "StartTime": "0001-01-01_00:00:00",
+                        "StopTime": "0001-01-01_02:00:00",
+                        "RunDuration": "none"},
+    "Decomp": {"HaloWidth": 3, "DecompMethod": "SFC"},
+    "IO": {"IODefaultFormat": "NetCDF3"},
+    "State": {"NTimeLevels": 2},
+    "Advection": {"FluxThicknessType": "Center", "FluxTracerType": "Center"},
+    "WindStress": {"InterpType": "Isotropic"},
+    "VertCoord": {"MovementWeightType": "Uniform"},
+    "Tendencies": {"ThicknessFluxTendencyEnable": True,
+                   "PVTendencyEnable": True,
+                   "KETendencyEnable": True,
+                   "SSHTendencyEnable": True,
+                   "VelDiffTendencyEnable": True,
+                   "ViscDel2": 1.0e3,
+                   "VelHyperDiffTendencyEnable": True,
+                   "ViscDel4": 1.2e11,
+                   "DivFactor": 1.0,
+                   "WindForcingTendencyEnable": False,
+                   "Density0": 1026.0,
+                   "BottomDragTendencyEnable": False,
+                   "BottomDragCoeff": 0.0,
+                   "TracerHorzAdvTendencyEnable": True,
+                   "TracerDiffTendencyEnable": True,
+                   "EddyDiff2": 10.0,
+                   "TracerHyperDiffTendencyEnable": True,
+                   "EddyDiff4": 0.0,
+                   "UseCustomTendency": False,
+                   "ManufacturedSolutionTendency": False},
+    "Tracers": {"Base": ["Temperature", "Salinity"]},
+    "Eos": {"EosType": "linear",
+            "Linear": {"DRhoDT": -0.2, "DRhoDS": 0.8, "RhoT0S0": 1000.0}},
+    "IOStreams": {},
+    "ManufacturedSolution": {"WavelengthX": 5.0e6, "WavelengthY": 4.33013e6,
+                             "Amplitude": 1.0},
+}
 
 
 def default_config() -> Config:
     """The built-in default configuration (mirrors configs/Default.yml)."""
-    return Config.from_yaml(DEFAULT_CONFIG_YAML)
+    return Config("Omega", copy.deepcopy(DEFAULT_CONFIG))

@@ -84,8 +84,19 @@ def _read_scipy(path: str) -> NCFile:
     return NCFile(dims, variables, var_dims, var_attrs, attrs)
 
 
+def _h5py():
+    """The h5py module, imported only where an HDF5 file is touched."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise IOError_("HDF5 files (stream Format: hdf5, Decomp ShardedIO "
+                       "or an HDF5 input) need the h5py package, which is "
+                       "not installed; use Format: netcdf3") from e
+    return h5py
+
+
 def _read_h5py(path: str) -> NCFile:
-    import h5py
+    h5py = _h5py()
     dims: Dict[str, int] = {}
     variables, var_dims, var_attrs = {}, {}, {}
     with h5py.File(path, "r") as f:
@@ -165,7 +176,7 @@ def write_sharded_frame(path: str, svars: Dict[str, dict],
     shards (iterable of (rows, values)), time_dependent, attrs)}. The
     dataset is created resizable on first use and grown one record per
     call for time-dependent variables."""
-    import h5py
+    h5py = _h5py()
     with h5py.File(path, "a") as f:
         for name, sv in svars.items():
             vdims = tuple(sv["vdims"])
@@ -223,14 +234,13 @@ class RegionReader:
         self.path = path
         self.fmt = _detect_format(path)
         if self.fmt == "hdf5":
-            import h5py
+            h5py = _h5py()
             self._f = h5py.File(path, "r")
             self.attrs = {k: _decode(v) for k, v in self._f.attrs.items()
                           if not k.startswith(("_Netcdf",))}
             self._vdims = {}
             for name, ds in self._f.items():
-                import h5py as _h5
-                if not isinstance(ds, _h5.Dataset):
+                if not isinstance(ds, h5py.Dataset):
                     continue
                 vdims = []
                 if "DIMENSION_LIST" in ds.attrs:
@@ -247,9 +257,8 @@ class RegionReader:
 
     def has(self, name: str) -> bool:
         if self.fmt == "hdf5":
-            import h5py
             return name in self._f and isinstance(self._f[name],
-                                                  h5py.Dataset)
+                                                  _h5py().Dataset)
         return name in self._f.variables
 
     def var_dims(self, name: str):
@@ -310,7 +319,7 @@ def _write_scipy(path, dims, variables, var_dims, var_attrs, attrs,
 
 def _write_h5py(path, dims, variables, var_dims, var_attrs, attrs,
                 unlimited=None):
-    import h5py
+    h5py = _h5py()
     with h5py.File(path, "w") as f:
         for k, v in attrs.items():
             f.attrs[k] = v
@@ -349,7 +358,7 @@ def append_netcdf(path: str, *, variables: Dict[str, np.ndarray],
     attrs = attrs or {}
     fmt = _detect_format(path)
     if fmt == "hdf5":
-        import h5py
+        h5py = _h5py()
         with h5py.File(path, "a") as f:
             for name, data in variables.items():
                 data = np.asarray(data)

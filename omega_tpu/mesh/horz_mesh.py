@@ -1,4 +1,4 @@
-"""Horizontal mesh container — the TPU-native analogue of ocn/HorzMesh.h:30.
+"""Horizontal mesh container — the JAX analogue of ocn/HorzMesh.h:30.
 
 The reference stores the local (owned+halo) MPAS mesh as Kokkos arrays and
 derives edge signs / masks / mesh scaling at init (ocn/HorzMesh.cpp:527-640).
@@ -47,19 +47,11 @@ import numpy as np
         "kite_areas_on_vertex", "edge_sign_on_vertex", "vertex_mask",
         # fused stencil weights (derived; pure geometry)
         "w_div_cell", "w_ke_cell", "w_curl_vertex", "w_kite_frac",
-        # optional patch-kernel weight-plane stack as a pytree LEAF so it
-        # rides the jit boundary as a runtime operand instead of a
-        # program constant (the lane-major (10, SS, SS, npl) stack is
-        # 164 MB at icos48 / ~530 MB at icos96 — embedding it as an HLO
-        # literal is what broke remote compiles at icos96).  Attached by
-        # ops/patch_megastep.attach_planes; None otherwise.
-        "patch_planes",
     ],
     meta_fields=["ncells", "nedges", "nvertices", "max_edges", "vertex_degree",
                  "on_sphere", "sphere_radius", "x_period", "y_period",
                  "structured_nx", "structured_ny", "structured_dc",
-                 "structured_scalars", "gather_key", "patch_key",
-                 "patch_planes_key"],
+                 "structured_scalars", "patch_key"],
 )
 @dataclasses.dataclass(frozen=True)
 class HorzMesh:
@@ -87,22 +79,14 @@ class HorzMesh:
     # static ((attr, value), ...) pairs for per-element arrays that are
     # spatially uniform on this mesh — trisk.col() returns these python
     # scalars instead of (N, 1) columns so hot-path multiplies stay fused
-    # (measured ~60x on v5e). Static metadata (not a global cache) so two
+    # Static metadata (not a global cache) so two
     # same-sized meshes with different f0/depth cannot collide, and a
     # beta-plane mesh simply omits the f entries.
     structured_scalars: tuple = ()
-    # nonzero id under which windowed-gather tables (ops/pallas_gather)
-    # were warmed for this mesh — static so lookups work inside jit
-    gather_key: int = 0
     # nonzero id of the icosahedral patch layout (mesh/icos_patches.py)
     # this mesh was renumbered into — enables the per-patch streaming
     # stencil path (ops/patch_stencil.py); static so lookups work in jit
     patch_key: int = 0
-    # prep key the attached patch_planes leaf was built under (see the
-    # data_fields comment); () when no planes are attached.  Static so
-    # the kernel can verify at trace time that the operand matches the
-    # current env-knob prep and fall back to the constant otherwise.
-    patch_planes_key: tuple = ()
 
     # --- cell arrays ---
     x_cell: jax.Array = None           # (C,)
@@ -159,10 +143,6 @@ class HorzMesh:
     w_curl_vertex: jax.Array = None    # (V, D) = sign_v * dc / areaTriangle
     # kite fractions: h(v)   = sum_j w_kite_frac[v,j] * h[cells_on_vertex]
     w_kite_frac: jax.Array = None      # (V, D) = kiteArea / areaTriangle
-
-    # optional patch-kernel lane-major weight-plane stack (see the
-    # register_dataclass data_fields comment); (10, SS, SS, npl) float
-    patch_planes: jax.Array = None
 
     # ------------------------------------------------------------------
     def astype(self, dtype) -> "HorzMesh":

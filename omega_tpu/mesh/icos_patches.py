@@ -5,9 +5,8 @@ of n x n cells plus the 2 pole pentagons: subdividing the icosahedron n
 times gives 10n^2+2 generator points that tile into 10 parallelograms
 (each a pair of icosahedral faces), with every interior point having its
 6 neighbors at FIXED lattice displacements {(+-1,0),(0,+-1),(+1,-1),
-(-1,+1)}.  On TPU that structure is worth ~10x: row gathers of (N, K)
-fields run 10-15x slower than streaming sweeps (CLAUDE.md perf facts),
-and the general sphere path is all gathers.
+(-1,+1)}.  That structure turns the general sphere path's row gathers
+of (N, K) fields into streaming slices (ops/patch_stencil.py).
 
 This module renumbers an icos mesh patch-major (cell id = r*n^2 + b*n + a
 for rhombus r, row b, column a; the 2 poles appended) with edges and
@@ -675,9 +674,8 @@ def apply_land_mask(mesh: HorzMesh, land_cells) -> HorzMesh:
 
     With zero initial velocity on masked edges, the ocean cells evolve
     identically to the same ocean carved out with mesh/carve.py (land
-    rows stay frozen at their initial state).  The fused patch kernel
-    (ops/patch_megastep.py) implements the mask gates of the composed
-    chain, so land meshes stay on the fast path.
+    rows stay frozen at their initial state), and land meshes stay on
+    the patch stencil path.
 
     `land_cells`: bool (ncells,) in the PATCH numbering.  Returns a new
     HorzMesh with a fresh patch_key (stencil tables rebuilt against the

@@ -131,7 +131,7 @@ def planar_hex_mesh(nx: int, ny: int, dc: float = 1.0, *,
     cells_on_cell = np.stack([nbr_E, nbr_NE, nbr_NW, nbr_W, nbr_SW, nbr_SE], 1)
 
     # --- edges: cell c owns E edge (c), NE edge (C+c), NW edge (2C+c).
-    # CLASS-MAJOR numbering (type-contiguous blocks): on TPU this makes
+    # CLASS-MAJOR numbering (type-contiguous blocks): this makes
     # per-type slices of (E, K) fields free reshapes instead of strided
     # interleaves, which is what keeps the structured roll path at
     # streaming bandwidth (ops/structured.py) ---

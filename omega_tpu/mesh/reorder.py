@@ -1,7 +1,6 @@
 """Space-filling-curve renumbering of unstructured meshes.
 
-SURVEY.md hard part (a): TRiSK gathers on TPU live or die by index
-locality. This module permutes cells, edges, and vertices of a HorzMesh
+SURVEY.md hard part (a): TRiSK gathers live or die by index locality. This module permutes cells, edges, and vertices of a HorzMesh
 along a Hilbert curve (cells), with edges/vertices renumbered by their
 first adjacent cell — the same locality-sorted, degree-padded layout seed
 the reference gets from its CPU VecLength blocking (SURVEY.md section
@@ -9,8 +8,7 @@ the reference gets from its CPU VecLength blocking (SURVEY.md section
 
 Applying this to a loaded MPAS mesh keeps all operator results identical
 up to the permutation (tested) while tightening the index windows every
-gather touches — on sphere meshes the windowed Pallas kernels
-(ops/pallas_gather.py) depend on it.
+gather touches, so neighbouring destinations read neighbouring rows.
 """
 
 from __future__ import annotations
@@ -37,9 +35,8 @@ def _morton3(x, y, z, bits: int = 20) -> np.ndarray:
 
 def _rcm_cell_perm(mesh: HorzMesh) -> np.ndarray:
     """Reverse Cuthill-McKee order of the cell graph: bounded bandwidth
-    (~O(sqrt N) with no curve seams), which is what the windowed Pallas
-    gather kernels need — Morton/Hilbert curves on a sphere have seam
-    blocks whose index window spans the whole mesh."""
+    (~O(sqrt N) with no curve seams) — Morton/Hilbert curves on a sphere
+    have seam blocks whose index window spans the whole mesh."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -59,7 +56,7 @@ def sfc_permutations(mesh: HorzMesh, method: str = "rcm"):
     """(cell_perm, edge_perm, vertex_perm): new order -> old index.
 
     method 'rcm' (default): reverse Cuthill-McKee — bounded index
-    bandwidth, required by the windowed gather kernels. method 'sfc':
+    bandwidth. method 'sfc':
     planar meshes use a 2-D Hilbert curve; spherical meshes 3-D Morton
     keys of the unit-sphere positions."""
     from omega_tpu.parallel import native
@@ -139,25 +136,17 @@ def reorder_mesh(mesh: HorzMesh, method: str = "rcm") -> HorzMesh:
         edges_on_vertex=remap(a("edges_on_vertex")[vp], er),
         kite_areas_on_vertex=a("kite_areas_on_vertex")[vp],
     )
-    out = finalize_mesh(raw, ncells=C, nedges=E, nvertices=V,
-                        max_edges=M, vertex_degree=mesh.vertex_degree,
-                        on_sphere=mesh.on_sphere,
-                        sphere_radius=mesh.sphere_radius,
-                        x_period=mesh.x_period, y_period=mesh.y_period)
-    if method == "rcm":
-        # bounded bandwidth -> warm the windowed Pallas gather tables
-        from omega_tpu.ops import trisk
-        try:
-            out = trisk.warm_gather(out)
-        except ValueError:
-            pass    # oversized windows: stay on the XLA gather path
-    return out
+    return finalize_mesh(raw, ncells=C, nedges=E, nvertices=V,
+                         max_edges=M, vertex_degree=mesh.vertex_degree,
+                         on_sphere=mesh.on_sphere,
+                         sphere_radius=mesh.sphere_radius,
+                         x_period=mesh.x_period, y_period=mesh.y_period)
 
 
 def gather_window_stats(mesh: HorzMesh, block: int = 256,
                         reduce: str = "max") -> dict:
     """Index window each `block` of consecutive destinations touches, per
-    stencil — the VMEM sizing input for windowed Pallas gathers.
+    stencil — the locality measure the renumbering tightens.
 
     reduce: 'max' (worst block; dominated by periodic-seam blocks) or
     'median' (typical block, the cache-locality indicator)."""

@@ -4,9 +4,8 @@ Counterpart of ops/structured.py for the sphere: meshes renumbered by
 mesh/icos_patches.py expose every TRiSK stencil as static SLICES of a
 halo-padded per-patch frame (T, 10, n+2W, n+2W, K) with per-position
 weight planes, plus a tiny exact gather fix-up (pentagons, seams,
-poles).  TPU row gathers of (N, K) fields run 10-15x slower than
-streaming sweeps (CLAUDE.md perf facts); this path replaces the general
-sphere gather path with:
+poles).  A row gather of an (N, K) field reads through an index array;
+this path replaces the general sphere gather path with:
 
   1. one reshape paste of the class-major grid ids (free),
   2. ONE small gather+scatter filling halos / seam holes (O(n) rows
@@ -82,9 +81,12 @@ def _apply2d(info: ip.PatchInfo, tab: ip.PatchTable, field):
     if tail:
         flat = jnp.concatenate([flat, jnp.zeros((tail, K), field.dtype)])
     if tab.fix_ids.size:
+        # full precision: a f32 dot at default precision may run in
+        # TF32 on GPU tensor cores
         g = jnp.take(field, tab.fix_idx, axis=0)          # (F, S, K)
         vals = jnp.einsum("fs,fsk->fk",
-                          jnp.asarray(tab.fix_w, field.dtype), g)
+                          jnp.asarray(tab.fix_w, field.dtype), g,
+                          precision=jax.lax.Precision.HIGHEST)
         flat = flat.at[tab.fix_ids].set(vals)
     return flat
 

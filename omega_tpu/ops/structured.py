@@ -1,10 +1,9 @@
 """Gather-free stencil execution on uniform doubly periodic hex meshes.
 
-TPU gathers of (element, K) rows run ~10-15x slower than streaming reads
-(measured on v5e: 2.7-5.7 ms per gathered operator at 256^2 x 100 vs
-~0.2 ms for an elementwise sweep). On the uniform planar hex mesh every
-stencil neighbor is a FIXED lattice displacement, so each gather can be
-replaced by jnp.roll shifts — pure streaming, fused by XLA.
+A gather of (element, K) rows reads memory through an index array; on
+the uniform planar hex mesh every stencil neighbor is a FIXED lattice
+displacement, so each gather can be replaced by jnp.roll shifts — pure
+streaming reads that XLA fuses with their neighbours.
 
 The machinery is derived, not hand-coded: `_decompose` inspects an actual
 connectivity array (e.g. edges_on_cell) of the generated mesh and factors
@@ -23,8 +22,8 @@ Element ids follow the planar generator's CLASS-MAJOR scheme: cell
 c = j*nx + i, edges t*C + c for t in {E, NE, NW}, vertices t*C + c
 (mesh/planar.py:133-170). Class-major numbering makes the canonical
 internal layout (..., T, ny, nx, K) a free reshape of (..., N, K), so
-per-type slices and output stacks stay contiguous — no relayouts on TPU
-(type-minor interleaves cost ~50x the roll itself).
+per-type slices and output stacks stay contiguous, with no relayout
+(a type-minor interleave would cost a transpose per operator).
 """
 
 from __future__ import annotations
@@ -113,9 +112,8 @@ def _decompose(idx: np.ndarray, dst_class: str, src_class: str,
 _TABLE_CACHE: dict = {}
 
 # per-element mesh arrays that collapse to scalars on the uniform mesh —
-# broadcasting an (N, 1) column against (N, K) measures ~60x slower than a
-# scalar multiply on v5e (the op can't stay fused), so the hot path asks
-# for these via trisk.col()
+# a scalar constant reads no mesh array and folds into the fused
+# multiply, so the hot path asks for these via trisk.col()
 _UNIFORM_ATTRS = ("dc_edge", "dv_edge", "edge_mask", "mesh_scaling_del2",
                   "mesh_scaling_del4", "f_edge", "f_vertex", "f_cell",
                   "bottom_depth", "area_cell", "area_triangle")
@@ -196,8 +194,8 @@ def _shift(F, dj: int, di_e: int, di_o: int):
 
     The parity-dependent column shift is expressed as an elementwise
     select between the two rolled variants rather than strided slices +
-    stack: the select stays inside XLA fusions (measured ~100x cheaper in
-    context on v5e than the slice/stack interleave)."""
+    stack: the select stays inside XLA fusions, where a slice/stack
+    interleave would materialise a relayout."""
     G = jnp.roll(F, -dj, axis=-3) if dj else F
     if di_e == di_o:
         return jnp.roll(G, -di_e, axis=-2) if di_e else G
@@ -209,24 +207,13 @@ def _shift(F, dj: int, di_e: int, di_o: int):
 
 
 def apply_stencil(mesh, table, field, src_weight=None):
-    """Compute out[d] = sum_s w_{t,s} * field[idx[d, s]] via rolls (or one
-    MXU convolution when OMEGA_CONV_STENCIL=1 — ops/structured_conv.py).
+    """Compute out[d] = sum_s w_{t,s} * field[idx[d, s]] via rolls.
 
     field: (..., N_src, K). Returns (..., N_dst, K)."""
     if table[0] == "patch":
         from omega_tpu.ops import patch_stencil
         return patch_stencil.apply_patch_stencil(mesh, table[1], field)
-    tab, dst_class, src_class = table[:3]
-    if len(table) > 3 and table[3] is not None:
-        from omega_tpu.ops import pallas_stencil, structured_conv
-        if pallas_stencil.enabled():
-            if pallas_stencil.kernel_kind() == "dma":
-                from omega_tpu.ops import pallas_stencil_dma
-                return pallas_stencil_dma.apply_stencil_dma(
-                    mesh, table[3], field)
-            return pallas_stencil.apply_stencil_pallas(mesh, table[3], field)
-        if structured_conv.enabled():
-            return structured_conv.apply_stencil_conv(mesh, table[3], field)
+    tab, dst_class, src_class = table
     nx, ny = mesh.structured_nx, mesh.structured_ny
     ps, pd = _NPER[src_class], _NPER[dst_class]
     G = _to_grid(field, ps, nx, ny)               # (..., ps, ny, nx, K)

@@ -1,15 +1,15 @@
 """Batched tridiagonal solvers for implicit vertical mixing.
 
-TPU-native rewrite of base/TriDiagSolvers.h: the reference picks Thomas
+Rewrite of base/TriDiagSolvers.h: the reference picks Thomas
 (sequential, CPU) or PCR (parallel cyclic reduction, GPU) at compile time
 (TriDiagSolvers.h:28-35) with team-scratch batching over VecLength columns.
-Here both are whole-array algorithms over (..., K) batches with K on the
-TPU lane axis:
+Here both are whole-array algorithms over (..., K) batches with K the
+contiguous last axis:
 
   * `thomas`   — lax.scan along K (two sweeps); minimal flops, serial in K
   * `pcr`      — ceil(log2 K) fused elementwise sweeps, no K-serial
-                 dependency: the TPU-native choice (each sweep is a
-                 shift + FMA over the whole (batch, K) block)
+                 dependency (each sweep is a shift + FMA over the
+                 whole (batch, K) block)
 
 plus the diffusion-specialized form of the reference
 (ThomasDiffusionSolver / PCRDiffusionSolver, TriDiagSolvers.h:262,363):

@@ -1,17 +1,18 @@
-"""TRiSK horizontal stencil operators — TPU-native formulation.
+"""TRiSK horizontal stencil operators as whole-array formulations.
 
 The reference implements these as per-element Kokkos functors with inner
 neighbor loops (ocn/HorzOperators.h:9-187). Here every operator is a
 whole-array weighted gather: neighbor indices are static (C, M) int32
 arrays (padded entries point at element 0 with weight 0), the vertical
-dimension K rides the TPU lane axis, and XLA fuses gather + multiply +
-reduce into one HBM sweep.
+dimension K is the minor (contiguous) axis, and XLA fuses gather +
+multiply + reduce into one sweep over memory.
 
-Two execution paths, numerically equivalent:
+Three execution paths, numerically equivalent:
   * gather path — general unstructured MPAS meshes
   * roll path   — uniform planar hex meshes (ops/structured.py): every
-    neighbor access becomes a lattice shift; ~10x faster on TPU where
-    row gathers fall off the streaming path
+    neighbor access becomes a lattice shift, so reads stream
+  * patch path  — icosahedral meshes renumbered onto rhombus patches
+    (ops/patch_stencil.py): static slices of halo-padded patch frames
 
 Besides the five classic operators, this module exposes the gather
 PRIMITIVES the aux-var/tendency layers build on (cell/vertex pairs on
@@ -24,6 +25,7 @@ vertex fields (..., V, K). Operators are linear maps between classes.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -32,9 +34,14 @@ from omega_tpu.ops import structured
 
 
 def _gather_sum(weights, idx, field):
-    """sum_j weights[n, j] * field[..., idx[n, j], k] -> (..., n, K)."""
+    """sum_j weights[n, j] * field[..., idx[n, j], k] -> (..., n, K).
+
+    The contraction is pinned to full precision: a f32 dot at default
+    precision may run in TF32 on GPU tensor cores, which keeps about 3
+    decimal digits."""
     g = jnp.take(field, idx, axis=-2)            # (..., N, M, K)
-    return jnp.einsum("nj,...njk->...nk", weights, g)
+    return jnp.einsum("nj,...njk->...nk", weights, g,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _take(field, idx):
@@ -42,12 +49,12 @@ def _take(field, idx):
 
 
 def _struct(mesh, name, idx, dst, src, weights=None):
-    """Fast-path stencil table — uniform planar rolls (name-tagged for
-    the conv/Pallas dispatch) or icosahedral patch slices — or None."""
+    """Fast-path stencil table — uniform planar rolls or icosahedral
+    patch slices — or None."""
     if structured.enabled(mesh):
         tab, dstc, srcc = structured.stencil_table(mesh, name, idx, dst,
                                                    src, weights)
-        return (tab, dstc, srcc, name) if tab is not None else None
+        return (tab, dstc, srcc) if tab is not None else None
     from omega_tpu.ops import patch_stencil
     if patch_stencil.enabled(mesh):
         t = patch_stencil.table(mesh, name)
@@ -59,83 +66,12 @@ def _struct(mesh, name, idx, dst, src, weights=None):
 def col(mesh: HorzMesh, attr: str):
     """Per-element column of a mesh array for broadcasting against
     (..., N, K) fields: a plain python scalar when the array is uniform on
-    a structured mesh (keeps the multiply fused — (N, 1) broadcasts fall
-    off the fused path on TPU), else the (N, 1) column."""
+    a structured mesh (a constant folds into the fused multiply and reads
+    no mesh array), else the (N, 1) column."""
     sc = structured.uniform_scalar(mesh, attr)
     if sc is not None:
         return sc
     return getattr(mesh, attr)[:, None]
-
-
-_GATHER_KEY = [0]
-
-
-def warm_gather(mesh: HorzMesh) -> HorzMesh:
-    """Build windowed Pallas-gather tables for an UNSTRUCTURED mesh
-    (host side, numpy arrays) and return the mesh tagged with a fresh
-    static gather_key. Requires bounded index bandwidth — renumber with
-    mesh.reorder.reorder_mesh (RCM) first. Raises ValueError when a
-    stencil's window exceeds the VMEM cap."""
-    import dataclasses
-
-    from omega_tpu.ops import pallas_gather
-
-    from omega_tpu.mesh.horz_mesh import unclamped_connectivity
-
-    _GATHER_KEY[0] += 1
-    tagged = dataclasses.replace(mesh, gather_key=_GATHER_KEY[0])
-    C, E, V = mesh.ncells, mesh.nedges, mesh.nvertices
-    w_signed = -np.asarray(mesh.edge_sign_on_cell) / np.asarray(
-        mesh.area_cell)[:, None]
-    w_div = np.asarray(mesh.w_div_cell)
-    # boundary meshes: padded 2-slot entries get weight 0 from the
-    # unclamped form (the XLA path reads the clamped element-0 value
-    # there instead; both are masked downstream)
-    unc = unclamped_connectivity(mesh)
-    coe_u = unc["cells_on_edge"]
-    voe_u = unc["vertices_on_edge"]
-    vw = lambda raw, w01: np.where(raw >= 0, np.asarray(w01), 0.0)
-    cl = lambda raw: np.maximum(raw, 0)
-    specs = [
-        ("div", mesh.edges_on_cell, w_div, E),
-        ("div_pos", mesh.edges_on_cell, np.maximum(w_div, 0.0), E),
-        ("div_neg", mesh.edges_on_cell, np.maximum(-w_div, 0.0), E),
-        ("ke", mesh.edges_on_cell, mesh.w_ke_cell, E),
-        ("signed_div", mesh.edges_on_cell, w_signed, E),
-        ("curl", mesh.edges_on_vertex, mesh.w_curl_vertex, E),
-        ("kite", mesh.cells_on_vertex, mesh.w_kite_frac, C),
-        ("tang", mesh.edges_on_edge, mesh.weights_on_edge, E),
-        ("cdiff", cl(coe_u), vw(coe_u, [-1.0, 1.0]), C),
-        ("cmean", cl(coe_u), vw(coe_u, [0.5, 0.5]), C),
-        ("vdiff", cl(voe_u), vw(voe_u, [-1.0, 1.0]), V),
-        ("vmean", cl(voe_u), vw(voe_u, [0.5, 0.5]), V),
-        ("c0", cl(coe_u[:, :1]), vw(coe_u[:, :1], [1.0]), C),
-        ("c1", cl(coe_u[:, 1:]), vw(coe_u[:, 1:], [1.0]), C),
-        ("v0", cl(voe_u[:, :1]), vw(voe_u[:, :1], [1.0]), V),
-        ("v1", cl(voe_u[:, 1:]), vw(voe_u[:, 1:], [1.0]), V),
-    ]
-    built = 0
-    for name, idx, w, nsrc in specs:
-        try:
-            pallas_gather.put(tagged, name,
-                              pallas_gather.GatherTable(np.asarray(idx),
-                                                        np.asarray(w),
-                                                        nsrc))
-            built += 1
-        except ValueError:
-            # oversized window (tiny mesh or bad ordering): this stencil
-            # stays on the XLA gather path
-            pass
-    if built == 0:
-        raise ValueError("no gather table fits the window cap")
-    return tagged
-
-
-def _gtab(mesh, name):
-    from omega_tpu.ops import pallas_gather
-    if getattr(mesh, "gather_key", 0) and pallas_gather.enabled():
-        return pallas_gather.get(mesh, name)
-    return None
 
 
 def warm_structured(mesh: HorzMesh) -> bool:
@@ -185,17 +121,7 @@ def warm_structured(mesh: HorzMesh) -> bool:
 def _pair(mesh, f, name0, name1, idx0, idx1, dst, src):
     t0 = _struct(mesh, name0, idx0, dst, src)
     if t0 is None:
-        from omega_tpu.ops import pallas_gather
-        g0, g1 = _gtab(mesh, name0), _gtab(mesh, name1)
-        if g0 is not None and g1 is not None:
-            return (pallas_gather.apply(g0, f), pallas_gather.apply(g1, f))
         return _take(f, idx0), _take(f, idx1)
-    from omega_tpu.ops import structured_conv
-    # merged pair convs measured SLOWER (union kernels waste MACs:
-    # 44.0 vs 37.4 ms/step at 256^2x100); keep separate convs by default
-    if t0[0] != "patch" and structured_conv.enabled() \
-            and structured_conv.pair_enabled():
-        return structured_conv.apply_pair_conv(mesh, name0, name1, f)
     t1 = _struct(mesh, name1, idx1, dst, src)
     return (structured.apply_stencil(mesh, t0, f),
             structured.apply_stencil(mesh, t1, f))
@@ -224,10 +150,6 @@ def _two_slot(mesh, f, name, idx2, w01, combine, dst, src):
     t = _struct(mesh, name, idx2, dst, src, w_np)
     if t is not None:
         return structured.apply_stencil(mesh, t, f)
-    g = _gtab(mesh, name)
-    if g is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(g, f)
     return combine(_take(f, idx2[:, 0]), _take(f, idx2[:, 1]))
 
 
@@ -262,10 +184,6 @@ def cell_to_vertex_kite(mesh: HorzMesh, f):
                 mesh.w_kite_frac)
     if t is not None:
         return structured.apply_stencil(mesh, t, f)
-    gt = _gtab(mesh, "kite")
-    if gt is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(gt, f)
     return _gather_sum(mesh.w_kite_frac, mesh.cells_on_vertex, f)
 
 
@@ -280,10 +198,6 @@ def edge_to_cell_signed(mesh: HorzMesh, g):
                 w_np)
     if t is not None:
         return structured.apply_stencil(mesh, t, g)
-    gt = _gtab(mesh, "signed_div")
-    if gt is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(gt, g)
     w = -mesh.edge_sign_on_cell / mesh.area_cell[:, None]
     return _gather_sum(w.astype(g.dtype), mesh.edges_on_cell, g)
 
@@ -295,10 +209,6 @@ def ke_cell(mesh: HorzMesh, u):
                 mesh.w_ke_cell)
     if t is not None:
         return structured.apply_stencil(mesh, t, u2)
-    gt = _gtab(mesh, "ke")
-    if gt is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(gt, u2)
     return _gather_sum(mesh.w_ke_cell, mesh.edges_on_cell, u2)
 
 
@@ -311,10 +221,6 @@ def _signed_div_part(mesh: HorzMesh, g, positive: bool):
     t = _struct(mesh, name, mesh.edges_on_cell, "cell", "edge", w_np)
     if t is not None:
         return structured.apply_stencil(mesh, t, g)
-    gt = _gtab(mesh, name)
-    if gt is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(gt, g)
     w = jnp.maximum(mesh.w_div_cell * (1.0 if positive else -1.0), 0.0)
     return _gather_sum(w.astype(g.dtype), mesh.edges_on_cell, g)
 
@@ -367,10 +273,6 @@ def div_cell(mesh: HorzMesh, vec_edge):
                 mesh.w_div_cell)
     if t is not None:
         return structured.apply_stencil(mesh, t, vec_edge)
-    gt = _gtab(mesh, "div")
-    if gt is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(gt, vec_edge)
     return _gather_sum(mesh.w_div_cell, mesh.edges_on_cell, vec_edge)
 
 
@@ -388,10 +290,6 @@ def curl_vertex(mesh: HorzMesh, vec_edge):
                 mesh.w_curl_vertex)
     if t is not None:
         return structured.apply_stencil(mesh, t, vec_edge)
-    gt = _gtab(mesh, "curl")
-    if gt is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(gt, vec_edge)
     return _gather_sum(mesh.w_curl_vertex, mesh.edges_on_vertex, vec_edge)
 
 
@@ -404,10 +302,6 @@ def tangential_edge(mesh: HorzMesh, vec_edge):
                 mesh.weights_on_edge)
     if t is not None:
         return structured.apply_stencil(mesh, t, vec_edge)
-    gt = _gtab(mesh, "tang")
-    if gt is not None:
-        from omega_tpu.ops import pallas_gather
-        return pallas_gather.apply(gt, vec_edge)
     return _gather_sum(mesh.weights_on_edge, mesh.edges_on_edge, vec_edge)
 
 

@@ -1,4 +1,4 @@
-"""Domain decomposition — the TPU-native analogue of base/Decomp + base/Halo.
+"""Domain decomposition — the JAX analogue of base/Decomp + base/Halo.
 
 The reference partitions the cell graph with METIS (base/Decomp.cpp:968),
 derives edge/vertex ownership from the first adjacent cell

@@ -2,9 +2,9 @@
 
 The reference packs per-neighbor device buffers, posts MPI_Irecv/Isend
 (device buffers under GPU-aware MPI), and unpacks in an MPI_Test polling
-loop (base/Halo.h:769-915). On TPU the equivalent is: pack owned boundary
-values with a static gather, move them over ICI with XLA collectives, and
-scatter into halo slots — XLA schedules the overlap, no polling loop.
+loop (base/Halo.h:769-915). Here the equivalent is: pack owned boundary
+values with a static gather, move them between devices with XLA
+collectives, and scatter into halo slots — XLA schedules the overlap, no polling loop.
 
 Two variants:
   * `exchange`           — all_gather of the packed boundary buffers
@@ -48,7 +48,7 @@ def exchange(x, send_idx, recv_src_shard, recv_src_slot, recv_dst,
     recv_*:   (NH,) where to fetch each halo value and where to store it
     """
     buf = jnp.take(x, send_idx, axis=-2)                    # (..., NS, K)
-    # gather all shards' buffers over ICI; leading axis is the shard id
+    # gather all shards' buffers; leading axis is the shard id
     gathered = jax.lax.all_gather(buf, axis_name, axis=0)   # (S, ..., NS, K)
     # select (src_shard, src_slot) pairs for our halo elements
     vals = gathered[recv_src_shard]                         # (NH, ..., NS, K)

@@ -23,7 +23,7 @@ with-multiplier overloads (Reductions.h:51,199-238,637,757):
 
 All functions accept an optional elementwise multiplier (the product
 variants) and an optional mask selecting owned elements so halo entries are
-not double counted. Non-f64 inputs (the TPU f32 path) fall back to the
+not double counted. Non-f64 inputs (the f32 path) fall back to the
 double-double pairwise tree, which is reproducible per decomposition but
 only ~2^-106-invariant across decompositions.
 """
@@ -149,7 +149,7 @@ def reprod_sum(x, axis_name: Optional[str] = None, multiplier=None,
     return _reprod_combine(parts)
 
 
-# f32 (TPU) variant: integer-bin extraction into int32 DIGITS. The f64
+# f32 variant: integer-bin extraction into int32 DIGITS. The f64
 # scheme's per-level float capacity (W <= 52 - log2 n) collapses at
 # 24-bit mantissas, and int64 is unavailable without jax_enable_x64, so
 # each error-free extract becomes exact int32 arithmetic: with

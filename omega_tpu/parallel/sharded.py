@@ -3,7 +3,7 @@
 Replaces the reference's MPI rank model (base/MachEnv.h:36) with a 1-D
 jax.sharding.Mesh over the spatial axis: each device holds one owned+halo
 local mesh (see decomp.py) and steppers run unchanged inside shard_map with
-the halo callback lowering to ICI collectives (the updateTimeLevels halo
+the halo callback lowering to XLA collectives (the updateTimeLevels halo
 exchange of ocn/OceanState.cpp:333-365 and the RK4 mid-step refresh).
 """
 
@@ -181,7 +181,7 @@ def make_sharded_step(smesh: ShardedMesh, cfg: ModelConfig, stepper,
     """Build a jittable sharded step: (sharded ModelState, t, dt) -> state.
 
     The same pure stepper used on a single device runs inside shard_map on
-    each local mesh; its `halo` callback is the ICI exchange
+    each local mesh; its `halo` callback is the collective exchange
     (halo_impl: 'permute' = per-neighbor ppermute rings, 'allgather').
 
     post_phase: optional (fn, aux) pair applied per shard AFTER the
@@ -266,17 +266,17 @@ def default_device_mesh(nshards: int, axis_name: str = "x") -> Mesh:
     return Mesh(np.array(devs), (axis_name,))
 
 
-def dcn_device_mesh(nshards: int, axis_name: str = "x",
-                    devices=None) -> Mesh:
-    """1-D device mesh ordered host-major for multi-host (DCN) runs.
+def host_major_device_mesh(nshards: int, axis_name: str = "x",
+                           devices=None) -> Mesh:
+    """1-D device mesh ordered host-major for multi-host runs.
 
     The model's single distributed axis is the horizontal mesh
     (SURVEY.md section 2.6) and the SFC decomposition gives contiguous
     spatial blocks, so halo ppermutes are dominated by rank distance 1.
     Ordering devices (process, slice, id)-major makes consecutive ranks
-    co-located: the distance-1 ring rides ICI within each host and
-    crosses DCN only at the host seams — the TPU analogue of the
-    reference's node-aware MPI rank placement.  `devices` overrides the
+    co-located: the distance-1 ring stays on the links inside each host
+    and crosses the inter-host network only at the host seams — the
+    analogue of the reference's node-aware MPI rank placement.  `devices` overrides the
     device list (tests emulate multi-host orderings with it)."""
     devs = list(jax.devices() if devices is None else devices)
     devs.sort(key=lambda d: (getattr(d, "process_index", 0),
@@ -290,13 +290,14 @@ def comm_volume_by_link(smesh: ShardedMesh, host_of) -> dict:
     """Per-step halo traffic split by link type for a host assignment.
 
     host_of: (nshards,) host index of each shard (rank order).  Returns
-    row counts {'ici': n, 'dcn': n, 'per_dcn_pair': {(ha, hb): n}} summed
+    row counts {'intra': n, 'inter': n, 'per_host_pair': {(ha, hb): n}}
+    (inside one host, between hosts, per host pair) summed
     over the cell and edge exchange lists (rows = elements, multiply by
     K * itemsize * fields for bytes).  The planner's tool for checking a
-    layout keeps the DCN share small before committing to it."""
+    layout keeps the inter-host share small before committing to it."""
     host_of = np.asarray(host_of)
     S = smesh.nshards
-    out = {"ici": 0, "dcn": 0, "per_dcn_pair": {}}
+    out = {"intra": 0, "inter": 0, "per_host_pair": {}}
     for kind in ("cell", "edge"):
         l2g = np.asarray(smesh.cell_local_to_global if kind == "cell"
                          else smesh.edge_local_to_global)
@@ -310,13 +311,13 @@ def comm_volume_by_link(smesh: ShardedMesh, host_of) -> dict:
                 if n == 0:
                     continue
                 if host_of[src] == host_of[dst]:
-                    out["ici"] += n
+                    out["intra"] += n
                 else:
-                    out["dcn"] += n
+                    out["inter"] += n
                     key = (int(min(host_of[src], host_of[dst])),
                            int(max(host_of[src], host_of[dst])))
-                    out["per_dcn_pair"][key] = \
-                        out["per_dcn_pair"].get(key, 0) + n
+                    out["per_host_pair"][key] = \
+                        out["per_host_pair"].get(key, 0) + n
     return out
 
 

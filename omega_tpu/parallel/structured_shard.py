@@ -1,15 +1,15 @@
 """Structure-preserving decomposition of uniform planar hex meshes.
 
 The general decomposition (decomp.py) renumbers each shard's local mesh,
-which drops it off the structured fast path — on TPU that forfeits the
-~3x conv-stencil advantage precisely where performance matters most.
+which drops it off the structured roll path onto the general gather
+path precisely where performance matters most.
 This module shards the (ny, nx) grid into an (sy, sx) grid of rectangles
 instead (sx == 1 gives the round-1 row bands):
 
   * shard (iy, ix) owns cell rows [iy*band, (iy+1)*band) x columns
     [ix*band_x, (ix+1)*band_x); its local domain adds `hw` halo rows and
     (when sx > 1) `hw` halo columns, so the local mesh IS a
-    planar_hex_mesh(band_x + 2*hw, band + 2*hw) — fully structured, conv
+    planar_hex_mesh(band_x + 2*hw, band + 2*hw) — fully structured, roll
     path on
   * the local periodic wrap across the cuts produces garbage only in the
     outermost halo ring, exactly the owned+halo redundancy model of the
@@ -332,7 +332,7 @@ def make_sharded_step(ss: StructuredShards, cfg: ModelConfig, stepper,
                       wind_stress=None, exchange_every: int = 1) -> Callable:
     """Jittable sharded step over the structured decomposition.
 
-    Every shard runs the SAME structured local mesh (conv/roll fast path
+    Every shard runs the SAME structured local mesh (roll fast path
     stays on); the halo callback is the two-stage block ppermute.
 
     exchange_every=k > 1 amortizes communication (the reference's

@@ -23,9 +23,8 @@ Per step of length dt with M subcycles:
      the transport velocity u' + <ubar> so the layer-sum of thickness
      fluxes is consistent with the subcycled free surface
 
-On TPU the subcycle loop is a lax.scan over cheap (C/E, 1)-depth
-barotropic fields — the MXU/VPU stays busy with the 3D work while the
-scan costs O(M * 2D traffic).
+The subcycle loop is a lax.scan over cheap (C/E, 1)-depth barotropic
+fields, so it costs O(M * 2D traffic) beside the 3D work.
 """
 
 from __future__ import annotations
@@ -71,29 +70,6 @@ def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
             "set ModelConfig.ssh_formulation='column' (SshFormulation: "
             "Column) — the default 'stacked' per-layer ssh has no shared "
             "barotropic mode")
-    if (halo is _identity and wind_stress is None
-            and isinstance(dt, (int, float))):
-        from omega_tpu.ops import megastep, patch_megastep
-        if megastep.enabled() and megastep.split_supported(mesh, cfg):
-            # fully fused fast path: splitpre kernel -> resident
-            # barotropic-subcycle kernel -> splitpost kernel
-            # (ops/megastep.split_megastep_stacked); exact vs this
-            # composed path on the supported configuration
-            return megastep.split_megastep(mesh, cfg, state, t, dt,
-                                           n_subcycles, bt_drag)
-        if patch_megastep.enabled() \
-                and patch_megastep.split_patch_supported(mesh, cfg):
-            # sphere counterpart: splitpre/splitpost patch kernels with
-            # the flat 2-D barotropic phase between
-            # (patch_megastep.split_patch_megastep_framed)
-            h0, _, tr0 = state
-            K, L = h0.shape[-1], tr0.shape[0]
-            carry = patch_megastep.stack_frames(mesh, cfg, state)
-            carry = patch_megastep.split_patch_megastep_framed(
-                mesh, cfg, carry, t, dt, K=K, L=L,
-                n_subcycles=n_subcycles, bt_drag=bt_drag)
-            return patch_megastep.unstack_frames(mesh, carry, K, L,
-                                                 type(state))
     h, u, tr = state
     g = cfg.gravity
 
@@ -136,29 +112,18 @@ def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
     edge_ex = getattr(halo, "edge", None) or (lambda x: x)
     cell_ex = getattr(halo, "cell", None) or (lambda x: x)
 
-    from omega_tpu.ops import barotropic_kernel as btk
-    if (halo is _identity and btk.enabled() and btk.supported(mesh)
-            and isinstance(dt, (int, float))):
-        # single fused kernel: the whole 2-D barotropic state resides in
-        # VMEM for all M subcycles (ops/barotropic_kernel.py) — exact,
-        # since the resident doubly periodic domain has no tile creep
-        ub_final, _, ubar_avg = btk.bt_subcycles(
-            mesh, ubar, ssh, g_slow, h_edge_tot,
-            gravity=g, dt_bt=dt_bt, n_subcycles=n_subcycles,
-            bt_drag=bt_drag)
-    else:
-        def subcycle(carry, _):
-            ub, ssh_s, acc = carry
-            ub = ub + dt_bt * (fast(ub, ssh_s) + g_slow)
-            ub = edge_ex(ub)
-            ssh_s = ssh_s - dt_bt * trisk.div_cell(mesh, h_edge_tot * ub)
-            ssh_s = cell_ex(ssh_s)
-            return (ub, ssh_s, acc + ub), None
+    def subcycle(carry, _):
+        ub, ssh_s, acc = carry
+        ub = ub + dt_bt * (fast(ub, ssh_s) + g_slow)
+        ub = edge_ex(ub)
+        ssh_s = ssh_s - dt_bt * trisk.div_cell(mesh, h_edge_tot * ub)
+        ssh_s = cell_ex(ssh_s)
+        return (ub, ssh_s, acc + ub), None
 
-        (ub_final, _, acc), _ = jax.lax.scan(
-            subcycle, (ubar, ssh, jnp.zeros_like(ubar)), None,
-            length=n_subcycles)
-        ubar_avg = acc / n_subcycles
+    (ub_final, _, acc), _ = jax.lax.scan(
+        subcycle, (ubar, ssh, jnp.zeros_like(ubar)), None,
+        length=n_subcycles)
+    ubar_avg = acc / n_subcycles
 
     # --- baroclinic velocity update (slow modes only)
     uprime_new = uprime + dt * (du_full - du_bar)
@@ -178,11 +143,6 @@ def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
     return halo(out)
 
 
-# run_steps' stacked fast path reads these defaults when the bare
-# function is passed as the stepper (matches the signature defaults)
-split_forward_backward_step.split_explicit_params = (10, 0.0)
-
-
 def make_split_stepper(n_subcycles: int = 10, bt_drag: float = 0.0):
     """Stepper factory with a fixed subcycle count and optional linear
     barotropic drag (config `TimeIntegration: BarotropicSubcycles` /
@@ -191,7 +151,4 @@ def make_split_stepper(n_subcycles: int = 10, bt_drag: float = 0.0):
         return split_forward_backward_step(mesh, cfg, state, t, dt, halo,
                                            wind_stress, n_subcycles,
                                            bt_drag)
-    # run_steps reads this to keep the stacked mega layout as the scan
-    # carry when the fused split path applies
-    step.split_explicit_params = (n_subcycles, bt_drag)
     return step

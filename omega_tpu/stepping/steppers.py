@@ -1,6 +1,6 @@
 """Time steppers — pure functional state -> state maps.
 
-TPU-native rewrite of src/timeStepping/: ForwardBackwardStepper.cpp:27-82,
+Rewrite of src/timeStepping/: ForwardBackwardStepper.cpp:27-82,
 RungeKutta2Stepper.cpp:25-75, RungeKutta4Stepper.cpp:68-137. The reference
 mutates circular time-level buffers and triggers MPI halo exchanges inside
 updateTimeLevels; here each stepper is a pure function and the halo
@@ -62,24 +62,6 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
                           t, dt, halo: Halo = _identity,
                           wind_stress=None) -> ModelState:
     """Forward h/tracer update, backward u update (uses new h)."""
-    if isinstance(dt, (int, float)):
-        from omega_tpu.ops import megastep, patch_megastep
-        if patch_megastep.enabled() and patch_megastep.supported(mesh, cfg):
-            # sphere counterpart (ops/patch_megastep.py): the full FB
-            # chain per patch tile (wind/drag/vmix included), pole rows
-            # fixed on a tiny submesh
-            return halo(patch_megastep.fb_patch_megastep(
-                mesh, cfg, state, t, dt, wind_stress=wind_stress))
-        if megastep.enabled() and megastep.supported(mesh, cfg):
-            # single fused Pallas kernel for the flagship configuration
-            # (ops/megastep.py): reads state once, writes state once —
-            # including wind/drag/vmix physics, so the science config
-            # stays fused. Under sharding the local mesh is itself
-            # structured and doubly periodic: the kernel's wrap garbage
-            # lands in the halo rows, which the exchange refreshes — the
-            # same owned+halo redundancy model as the composed stepper.
-            return halo(megastep.fb_megastep(mesh, cfg, state, t, dt,
-                                             wind_stress=wind_stress))
     h, u, tr = state
     dh, thick_aux = tend_mod.compute_thickness_tendency(mesh, cfg, h, u, t)
     h_new = h + dt * dh
@@ -89,7 +71,7 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
         flux_h_edge=thick_aux.flux_h_edge)
     tr_new = (tr * h[None] + dt * dtr) / h_new[None]
 
-    # Compute/comm overlap (the TPU analogue of the reference's
+    # Compute/comm overlap (the analogue of the reference's
     # MPI_Test poll-and-unpack loop, base/Halo.h:849-881): once h and
     # the tracers are updated, their owned boundary rows are final, so
     # the cell-space ppermute rounds are ISSUED here and their results
@@ -186,7 +168,6 @@ def _split_stepper(*args, **kw):
     return split_forward_backward_step(*args, **kw)
 
 
-_split_stepper.split_explicit_params = (10, 0.0)
 _STEPPERS["splitexplicit"] = _split_stepper
 
 
@@ -205,155 +186,6 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
     """Advance `nsteps` with a compiled lax.scan (the ocnRun loop,
     ocn/OceanRun.cpp:16-70, minus host-side IO which is handled by the
     driver between scan segments)."""
-    if (stepper is forward_backward_step and halo is _identity
-            and isinstance(dt, (int, float))):
-        from omega_tpu.ops import megastep, patch_megastep
-        if patch_megastep.enabled() and patch_megastep.supported(
-                mesh, cfg, framed=True):
-            # persistent-frame fast path (sphere): the patch frames are
-            # the scan carry, so a step is one kernel + the tiny pole
-            # submesh step + the in-frame halo refresh — no per-step
-            # frame assembly / paste-back scatters. Wind planes are
-            # built once per segment. FCT configs run the two-stage
-            # Zalesak driver (fct_patch_megastep_framed).
-            h, _, tr = state
-            K, L = h.shape[-1], tr.shape[0]
-            carry = patch_megastep.stack_frames(mesh, cfg, state)
-            pwind = patch_megastep.make_wind(mesh, cfg, wind_stress,
-                                             h.dtype)
-            import os as _os
-            # Staged two-kernel FB (OMEGA_PATCH_FB2; the vmix tail runs
-            # in stage B).  AUTO-ON for the configs whose single-kernel
-            # chain exceeds the 128M scoped VMEM at the icos48 defaults
-            # (BENCH_NOTES round-5): PP81's coefficient sweep (fits
-            # staged: 32.02 ms/step measured) and the upwind pair
-            # tables (fit staged at the default K=4: 25.48 ms/step;
-            # single-kernel needed OMEGA_PATCH_K=6).  OMEGA_PATCH_FB2=0
-            # forces the single kernel, =1 forces staging everywhere.
-            _fb2env = _os.environ.get("OMEGA_PATCH_FB2")
-            _fb2 = (_fb2env == "1"
-                    or (_fb2env != "0"
-                        and ((cfg.vert_mix.enabled
-                              and cfg.vert_mix.scheme == "pp81")
-                             or cfg.flux_thickness_type == "upwind"
-                             or cfg.flux_tracer_type == "upwind")))
-            pstep = (patch_megastep.fct_patch_megastep_framed
-                     if cfg.flux_tracer_type == "fct"
-                     else patch_megastep.fb2_patch_megastep_framed
-                     if _fb2
-                     else patch_megastep.fb_patch_megastep_framed)
-
-            def pbody(c, _):
-                cr, t = c
-                cr = pstep(mesh, cfg, cr, t, dt, K=K, L=L, wind=pwind)
-                return (cr, t + dt), None
-
-            (carry, _), _ = jax.lax.scan(
-                pbody, (carry, jnp.asarray(t0, h.dtype)), None,
-                length=nsteps)
-            return patch_megastep.unstack_frames(
-                mesh, carry, K, L, type(state),
-                fct=cfg.flux_tracer_type == "fct")
-        if megastep.enabled() and megastep.supported(mesh, cfg):
-            # stacked fast path: keep the mega-step kernel's single
-            # (CH, ny, nx, K128) array as the scan carry so each step is
-            # exactly one kernel launch (no per-step stack/pad glue);
-            # the wind channel is packed ONCE per segment (constant
-            # within a scan, like the composed path's per-segment wind)
-            h, _, tr = state
-            stacked = megastep.stack_state(mesh, state)
-            wind = megastep._wind_arg(mesh, cfg, wind_stress, h.dtype)
-
-            def mbody(carry, _):
-                return megastep.fb_megastep_stacked(mesh, cfg, carry, dt,
-                                                    wind=wind), None
-
-            stacked, _ = jax.lax.scan(mbody, stacked, None, length=nsteps)
-            return megastep.unstack_state(mesh, stacked, h.shape[-1],
-                                          tr.shape[0], type(state))
-    split_params = getattr(stepper, "split_explicit_params", None)
-    if (split_params is not None and halo is _identity
-            and wind_stress is None and isinstance(dt, (int, float))):
-        from omega_tpu.ops import megastep, patch_megastep
-        if patch_megastep.enabled() \
-                and patch_megastep.split_patch_supported(mesh, cfg):
-            # sphere split-explicit on the persistent frames carry
-            M, r_drag = split_params
-            h, _, tr = state
-            K, L = h.shape[-1], tr.shape[0]
-            carry = patch_megastep.stack_frames(mesh, cfg, state)
-
-            def spbody(c, _):
-                cr, tt = c
-                cr = patch_megastep.split_patch_megastep_framed(
-                    mesh, cfg, cr, tt, dt, K=K, L=L, n_subcycles=M,
-                    bt_drag=r_drag)
-                return (cr, tt + dt), None
-
-            (carry, _), _ = jax.lax.scan(
-                spbody, (carry, jnp.asarray(t0, h.dtype)), None,
-                length=nsteps)
-            return patch_megastep.unstack_frames(mesh, carry, K, L,
-                                                 type(state))
-        if megastep.enabled() and megastep.split_supported(mesh, cfg):
-            # split-explicit stacked fast path: splitpre/subcycle/
-            # splitpost kernels per step on the persistent mega layout
-            M, r_drag = split_params
-            h, _, tr = state
-            stacked = megastep.stack_state(mesh, state, parity=False)
-
-            def sbody(carry, _):
-                return megastep.split_megastep_stacked(
-                    mesh, cfg, carry, dt, M, r_drag), None
-
-            stacked, _ = jax.lax.scan(sbody, stacked, None, length=nsteps)
-            return megastep.unstack_state(mesh, stacked, h.shape[-1],
-                                          tr.shape[0], type(state))
-    if (stepper in (rk2_step, rk4_step) and halo is _identity
-            and isinstance(dt, (int, float))):
-        from omega_tpu.ops import megastep, patch_megastep
-        kind = "rk2" if stepper is rk2_step else "rk4"
-        if patch_megastep.enabled() and patch_megastep.supported(mesh, cfg):
-            # sphere RK2/RK4: fused stage kernels per step with in-frame
-            # refreshes between (the margins hold one chain radius; see
-            # ops/patch_megastep.rk{2,4}_patch_megastep_framed)
-            h, _, tr = state
-            K, L = h.shape[-1], tr.shape[0]
-            carry = patch_megastep.stack_frames(mesh, cfg, state)
-            pwind = patch_megastep.make_wind(mesh, cfg, wind_stress,
-                                             h.dtype)
-            stepfn = (patch_megastep.rk2_patch_megastep_framed
-                      if stepper is rk2_step
-                      else patch_megastep.rk4_patch_megastep_framed)
-
-            def p2body(c, _):
-                cr, tt = c
-                cr = stepfn(mesh, cfg, cr, tt, dt, K=K, L=L, wind=pwind)
-                return (cr, tt + dt), None
-
-            (carry, _), _ = jax.lax.scan(
-                p2body, (carry, jnp.asarray(t0, h.dtype)), None,
-                length=nsteps)
-            return patch_megastep.unstack_frames(mesh, carry, K, L,
-                                                 type(state))
-        if megastep.enabled() and megastep.supported(mesh, cfg, kind=kind):
-            # RK2: both tendency chains fused into one kernel launch per
-            # step; RK4: four stage kernels threading (acc, prov)
-            # channels. Single-device only — the fused radii exceed any
-            # halo width, so sharded runs keep the composed path.
-            h, _, tr = state
-            stacked = megastep.stack_state(mesh, state)
-            wind = megastep._wind_arg(mesh, cfg, wind_stress, h.dtype)
-            stepfn = (megastep.rk2_megastep_stacked if kind == "rk2"
-                      else megastep.rk4_megastep_stacked)
-
-            def rbody(carry, _):
-                return stepfn(mesh, cfg, carry, dt, wind=wind), None
-
-            stacked, _ = jax.lax.scan(rbody, stacked, None, length=nsteps)
-            return megastep.unstack_state(mesh, stacked, h.shape[-1],
-                                          tr.shape[0], type(state))
-
     def body(carry, i):
         st, t = carry
         st = stepper(mesh, cfg, st, t, dt, halo, wind_stress)

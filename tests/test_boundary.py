@@ -196,36 +196,6 @@ def _sphere_state(mesh, K, L):
     return ModelState(h=h, u=jnp.zeros((mesh.nedges, K)), tracers=trc)
 
 
-def test_land_masked_patch_megastep_matches_composed():
-    """The fused patch kernel implements the mask gates (tracer-flux
-    mask*u, del2_e grad-part mask, accumulated-du gate): on a
-    land-masked patch mesh it reproduces the composed FB step."""
-    from omega_tpu.ops import patch_megastep
-
-    _, masked, land = _patch_land()
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e7))
-    assert patch_megastep.supported(masked, cfg)
-    p = patch_megastep._prep(masked, np.float64)
-    assert not isinstance(p.const_idx["edge_mask"], float), \
-        "land mask must stay a per-position plane"
-
-    st = _sphere_state(masked, 3, 2)
-    out = st
-    for _ in range(3):
-        out = patch_megastep.fb_patch_megastep(masked, cfg, out, 0.0,
-                                               300.0, interpret=True)
-    ref = run_steps(masked, cfg, st, 0.0, 300.0, 3,
-                    stepper=forward_backward_step)
-    for nme in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, nme)),
-                                   np.asarray(getattr(ref, nme)),
-                                   rtol=1e-10, atol=1e-10, err_msg=nme)
-    em = np.asarray(masked.edge_mask)
-    np.testing.assert_array_equal(np.asarray(out.u)[em == 0], 0.0)
-
-
 def test_land_masked_patch_matches_carved():
     """The mask formulation is the same ocean as carving: composed runs
     on the masked patch mesh and on carve_mesh(base, ~land) agree on

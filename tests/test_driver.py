@@ -369,9 +369,11 @@ def test_sharded_driver_sphere_general_decomp(tmp_path):
 
 
 def test_sharded_driver_patch_method(tmp_path):
-    """Decomp.Method: patch runs the patch-sphere fast path (whole rhombi
-    per device, fused kernel per shard, ppermute refresh) from config and
-    matches the single-device composed run."""
+    """Decomp.Method: patch (the removed rhombus-per-device path) is
+    refused at init with an error that names the decompositions that
+    remain: structured and sfc."""
+    from omega_tpu.infra.errors import ConfigError
+
     tmp = str(tmp_path)
     cfg_path = _base_config(tmp, stop="0001-01-01_00:06:00")
     doc = yaml.safe_load(open(cfg_path))
@@ -379,38 +381,10 @@ def test_sharded_driver_patch_method(tmp_path):
                                          "BottomDepth": 1000.0,
                                          "PatchLayout": True}}
     doc["Omega"]["Decomp"] = {"NShards": 2, "Method": "patch"}
-    # the fused patch kernel covers the flagship configuration: all
-    # diffusion terms on (ops/patch_megastep.supported)
-    doc["Omega"]["Tendencies"].update(
-        VelDiffTendencyEnable=True, ViscDel2=1.0e3,
-        VelHyperDiffTendencyEnable=True, ViscDel4=1.0e7,
-        TracerDiffTendencyEnable=True, EddyDiff2=10.0,
-        TracerHyperDiffTendencyEnable=True, EddyDiff4=1.0e7)
     yaml.safe_dump(doc, open(cfg_path, "w"))
-
-    def perturb(model):
-        mesh = model.mesh
-        ssh = np.sin(2 * np.asarray(mesh.lat_cell)) * \
-            np.cos(np.asarray(mesh.lon_cell))
-        K = model.model_cfg.nvertlayers
-        h = np.asarray(model.state.h) + ssh[:, None] / K
-        model.state = model.state._replace(h=jnp.asarray(h))
-        return model
-
-    mA = perturb(ocn_init(config_file=cfg_path, directory=tmp))
-    h0 = mA.state.h
-    stA = ocn_finalize(ocn_run(mA))
-
-    doc["Omega"]["Decomp"] = {"NShards": 1}
-    yaml.safe_dump(doc, open(cfg_path, "w"))
-    mB = ocn_init(config_file=cfg_path, directory=tmp)
-    mB.state = mB.state._replace(h=h0)
-    stB = ocn_finalize(ocn_run(mB))
-
-    np.testing.assert_allclose(np.asarray(stA.h), np.asarray(stB.h),
-                               rtol=0, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(stA.u), np.asarray(stB.u),
-                               rtol=0, atol=1e-10)
+    with pytest.raises(ConfigError,
+                       match=r"auto\|structured\|sfc, got 'patch'"):
+        ocn_init(config_file=cfg_path, directory=tmp)
 
 
 def test_sharded_driver_forced_sfc_on_planar(tmp_path):

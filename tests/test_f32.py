@@ -82,80 +82,6 @@ def test_f32_tracks_f64():
     assert err < 1000.0 * 50 * np.finfo(np.float32).eps, err
 
 
-def test_f32_sphere_patch_kernel():
-    """f32 gate for the SPHERE production path: the patch mega kernel
-    (persistent frames, interpret mode) conserves volume and h-weighted
-    tracer to f32 roundoff, stays finite, matches its own f64 run to
-    f32-growth, and land (masked) edges stay at exactly zero velocity —
-    the sphere analogue of the planar conservation gate (the bench's
-    production dtype on the metric mesh)."""
-    from omega_tpu.core.state import ModelState as MS
-    from omega_tpu.mesh.icos_patches import apply_land_mask, patch_icos_mesh
-    from omega_tpu.mesh.spherical import spherical_icos_mesh
-    from omega_tpu.ops import patch_megastep
-
-    n, K, L = 8, 3, 1
-    base = patch_icos_mesh(spherical_icos_mesh(n), n)
-    # land over a polar cap so masked edges are exercised at f32
-    land = np.asarray(base.lat_cell) > 1.2
-    mesh32 = apply_land_mask(base, land).astype(DTYPE)
-    cfg = ModelConfig(nvertlayers=K, ntracers=L,
-                      tendencies=TendencyConfig(visc_del2=1.0e3,
-                                                visc_del4=1.0e9))
-    assert patch_megastep.supported(mesh32, cfg)
-
-    ssh = np.sin(2 * np.asarray(mesh32.lat_cell)) * \
-        np.cos(np.asarray(mesh32.lon_cell))
-    d0 = float(np.asarray(mesh32.bottom_depth)[0])
-    h = jnp.asarray((d0 + 100.0 * ssh[:, None]) / K, DTYPE) * \
-        jnp.ones((1, K), DTYPE)
-    rng = np.random.default_rng(41)
-    u0 = 0.05 * rng.standard_normal((mesh32.nedges, K))
-    u0 *= np.asarray(mesh32.edge_mask)[:, None]
-    st32 = MS(h=h, u=jnp.asarray(u0, DTYPE),
-              tracers=10.0 + jnp.zeros((L, mesh32.ncells, K), DTYPE))
-
-    nsteps, dt = 12, 60.0
-
-    def run(mesh, st):
-        Kd = st.h.shape[-1]
-        carry = patch_megastep.stack_frames(mesh, cfg, st)
-        t = 0.0
-        for _ in range(nsteps):
-            carry = patch_megastep.fb_patch_megastep_framed(
-                mesh, cfg, carry, t, dt, K=Kd, L=L, interpret=True)
-            t += dt
-        return patch_megastep.unstack_frames(mesh, carry, Kd, L, MS)
-
-    out32 = run(mesh32, st32)
-    assert out32.h.dtype == DTYPE
-    area = np.asarray(mesh32.area_cell, np.float64)[:, None]
-    vol0 = np.sum(area * np.asarray(st32.h, np.float64))
-    vol1 = np.sum(area * np.asarray(out32.h, np.float64))
-    assert abs(vol1 - vol0) / vol0 < 5e-6
-    trc0 = np.sum(area * np.asarray(st32.h, np.float64)
-                  * np.asarray(st32.tracers[0], np.float64))
-    trc1 = np.sum(area * np.asarray(out32.h, np.float64)
-                  * np.asarray(out32.tracers[0], np.float64))
-    assert abs(trc1 - trc0) / trc0 < 5e-6
-    assert np.isfinite(np.asarray(out32.h)).all()
-    assert np.isfinite(np.asarray(out32.u)).all()
-    dead = np.asarray(mesh32.edge_mask) == 0.0
-    assert dead.any()
-    assert np.all(np.asarray(out32.u)[dead] == 0.0)
-
-    # f64 twin trajectory bounds the f32 drift
-    mesh64 = apply_land_mask(base, land)
-    st64 = MS(h=jnp.asarray(st32.h, jnp.float64),
-              u=jnp.asarray(st32.u, jnp.float64),
-              tracers=jnp.asarray(st32.tracers, jnp.float64))
-    out64 = run(mesh64, st64)
-    ssh32 = np.asarray(out32.h, np.float64).sum(-1)
-    ssh64 = np.asarray(out64.h, np.float64).sum(-1)
-    err = np.abs(ssh32 - ssh64).max()
-    assert err < d0 * nsteps * np.finfo(np.float32).eps, err
-
-
 @pytest.mark.parametrize("structured", [True, False])
 def test_f32_decomposition_invariance(structured):
     """8-shard f32 run matches the single-device f32 run to roundoff on

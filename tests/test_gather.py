@@ -1,94 +1,14 @@
-"""Windowed Pallas gather (ops/pallas_gather.py) tests — interpreter
-mode on CPU; hardware bit-accuracy is exercised by the sphere bench."""
+"""General gather path on renumbered sphere meshes."""
 
 import numpy as np
-import pytest
 
 import conftest  # noqa: F401
 
-import jax
 import jax.numpy as jnp
 
 from omega_tpu.mesh.reorder import reorder_mesh
 from omega_tpu.mesh.spherical import spherical_icos_mesh
-from omega_tpu.ops import pallas_gather, trisk
-
-
-@pytest.fixture(scope="module")
-def rmesh():
-    m = reorder_mesh(spherical_icos_mesh(16))
-    assert m.gather_key > 0
-    return m
-
-
-def test_tables_built_and_match_plain_gather(rmesh):
-    mesh = rmesh
-    rng = np.random.default_rng(0)
-    K = 5
-    fe = jnp.asarray(rng.standard_normal((mesh.nedges, K)))
-    fc = jnp.asarray(rng.standard_normal((mesh.ncells, K)))
-    fv = jnp.asarray(rng.standard_normal((mesh.nvertices, K)))
-    checks = [
-        ("div", mesh.w_div_cell, mesh.edges_on_cell, fe),
-        ("ke", mesh.w_ke_cell, mesh.edges_on_cell, fe),
-        ("curl", mesh.w_curl_vertex, mesh.edges_on_vertex, fe),
-        ("kite", mesh.w_kite_frac, mesh.cells_on_vertex, fc),
-        ("tang", mesh.weights_on_edge, mesh.edges_on_edge, fe),
-        ("cmean", np.full((mesh.nedges, 2), 0.5), mesh.cells_on_edge, fc),
-        ("vdiff", np.tile([-1.0, 1.0], (mesh.nedges, 1)),
-         mesh.vertices_on_edge, fv),
-        ("c0", np.ones((mesh.nedges, 1)),
-         np.asarray(mesh.cells_on_edge)[:, :1], fc),
-    ]
-    for name, w, idx, f in checks:
-        t = pallas_gather.get(mesh, name)
-        assert t is not None, name
-        out = pallas_gather.apply(t, f, interpret=True)
-        ref = trisk._gather_sum(np.asarray(w), np.asarray(idx), f)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                                   rtol=0, atol=1e-12, err_msg=name)
-
-
-def test_batched_leading_dims(rmesh):
-    mesh = rmesh
-    rng = np.random.default_rng(1)
-    tr = jnp.asarray(rng.standard_normal((2, mesh.ncells, 4)))
-    t = pallas_gather.get(mesh, "cmean")
-    out = pallas_gather.apply(t, tr, interpret=True)
-    ref = trisk._gather_sum(np.full((mesh.nedges, 2), 0.5),
-                            np.asarray(mesh.cells_on_edge), tr)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=0, atol=1e-12)
-
-
-def test_fb_step_windowed_matches_plain(rmesh, monkeypatch):
-    """The full FB step with OMEGA_PALLAS_GATHER on equals the XLA
-    gather path over 3 steps."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.stepping import forward_backward_step
-
-    mesh = rmesh
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e7))
-    ssh = np.sin(2 * np.asarray(mesh.lat_cell)) * \
-        np.cos(np.asarray(mesh.lon_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 3) * jnp.ones((1, 3))
-    st = ModelState(h=h, u=jnp.zeros((mesh.nedges, 3)),
-                    tracers=10.0 + jnp.zeros((2, mesh.ncells, 3)))
-
-    monkeypatch.setenv("OMEGA_PALLAS_GATHER", "1")
-    out1 = st
-    for _ in range(3):
-        out1 = forward_backward_step(mesh, cfg, out1, 0.0, 30.0)
-    monkeypatch.setenv("OMEGA_PALLAS_GATHER", "0")
-    out0 = st
-    for _ in range(3):
-        out0 = forward_backward_step(mesh, cfg, out0, 0.0, 30.0)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out1, n)),
-                                   np.asarray(getattr(out0, n)),
-                                   rtol=0, atol=1e-11, err_msg=n)
+from omega_tpu.ops import trisk
 
 
 def test_reorder_preserves_operator_results():

@@ -1,4 +1,4 @@
-"""Pallas gather kernel (interpreter mode) + SFC mesh reordering tests."""
+"""SFC mesh reordering tests."""
 
 import numpy as np
 import pytest
@@ -12,24 +12,7 @@ from omega_tpu.mesh import planar_hex_mesh
 from omega_tpu.mesh.reorder import (gather_window_stats, reorder_mesh,
                                     sfc_permutations)
 from omega_tpu.mesh.spherical import spherical_icos_mesh
-from omega_tpu.ops import pallas_gather, trisk
-
-
-def test_pallas_gather_table_weighted_sum():
-    """Windowed-gather table on synthetic bounded-bandwidth indices
-    (the arbitrary-index variant lives in the windowed design's cap:
-    indices must be locally banded)."""
-    rng = np.random.default_rng(0)
-    Nsrc, N, M, K = 700, 531, 6, 16     # non-multiple of BLOCK
-    field = jnp.asarray(rng.standard_normal((Nsrc, K)), jnp.float32)
-    base = np.minimum((np.arange(N) * Nsrc) // N, Nsrc - 60)
-    idx = base[:, None] + rng.integers(0, 60, (N, M))
-    w = rng.standard_normal((N, M))
-    t = pallas_gather.GatherTable(idx, w, Nsrc)
-    got = np.asarray(pallas_gather.apply(t, field, interpret=True))
-    ref = np.asarray(jnp.einsum("nj,njk->nk", jnp.asarray(w, jnp.float32),
-                                field[jnp.asarray(idx)]))
-    np.testing.assert_allclose(got, ref, atol=1e-5)
+from omega_tpu.ops import trisk
 
 
 def test_reorder_preserves_operators():

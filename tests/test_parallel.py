@@ -162,13 +162,13 @@ def test_structured_2d_decomposition_invariance(layout, beta):
                                rtol=0, atol=1e-12)
 
 
-def test_dcn_mesh_ordering_and_link_volumes():
+def test_host_major_mesh_ordering_and_link_volumes():
     """Multi-host layout: the host-major device mesh gives bit-identical
     results to the default ordering (device placement cannot change
-    numerics), and the SFC decomposition keeps the DCN share of halo
+    numerics), and the SFC decomposition keeps the inter-host share of halo
     traffic small — distance-1 ppermutes dominate and stay intra-host."""
     from omega_tpu.parallel.sharded import comm_volume_by_link, \
-        dcn_device_mesh
+        host_major_device_mesh
 
     mesh, cfg, state = _inertia_gravity_setup(nx=16, dc=5000.0)
     nshards, dt, nsteps = 8, 60.0, 3
@@ -179,8 +179,8 @@ def test_dcn_mesh_ordering_and_link_volumes():
     # so the host-major sort actually reorders them
     devs = jax.devices()[:nshards]
     shuffled = [devs[i] for i in (3, 7, 1, 5, 0, 4, 2, 6)]
-    dmesh_dcn = dcn_device_mesh(nshards, devices=shuffled)
-    assert [d.id for d in dmesh_dcn.devices.ravel()] == \
+    dmesh_hm = host_major_device_mesh(nshards, devices=shuffled)
+    assert [d.id for d in dmesh_hm.devices.ravel()] == \
         sorted(d.id for d in devs)
 
     def run(dmesh):
@@ -193,22 +193,22 @@ def test_dcn_mesh_ordering_and_link_volumes():
         return gather_state(smesh, st, mesh.ncells, mesh.nedges)
 
     ref = run(default_device_mesh(nshards))
-    out = run(dmesh_dcn)
+    out = run(dmesh_hm)
     np.testing.assert_array_equal(np.asarray(out.h), np.asarray(ref.h))
     np.testing.assert_array_equal(np.asarray(out.u), np.asarray(ref.u))
 
-    # link accounting: 2 hosts x 4 consecutive ranks each -> DCN rows
+    # link accounting: 2 hosts x 4 consecutive ranks each -> inter-host rows
     # come only from the two host-seam crossings of the rank ring (the
     # per-pair map must name host pair (0,1) alone), and intra-host
     # traffic dominates; the split is structural (2 of 8 ring seams),
     # not volume-proportional
     host_of = np.arange(nshards) // 4
     vol = comm_volume_by_link(smesh, host_of)
-    assert vol["ici"] > 0 and vol["dcn"] > 0
-    assert vol["dcn"] < vol["ici"], vol
-    assert set(vol["per_dcn_pair"]) == {(0, 1)}
+    assert vol["intra"] > 0 and vol["inter"] > 0
+    assert vol["inter"] < vol["intra"], vol
+    assert set(vol["per_host_pair"]) == {(0, 1)}
     # every exchanged row is accounted exactly once
-    total = vol["ici"] + vol["dcn"]
+    total = vol["intra"] + vol["inter"]
     expect = 0
     for kind in ("cell", "edge"):
         from omega_tpu.parallel.sharded import build_permute_lists

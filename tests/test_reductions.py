@@ -132,7 +132,7 @@ def test_energetics_bitwise_invariant_across_shard_counts(which):
 
 
 def test_reprod32_invariance_and_accuracy():
-    """The f32 (TPU) path: int64-bin extraction is bit-identical across
+    """The f32 path: int64-bin extraction is bit-identical across
     element permutations and shard counts, and accurate to ~1 ulp of
     the true sum (72 bins bits before the final f32 rounding)."""
     rng = np.random.default_rng(9)

@@ -176,130 +176,3 @@ def test_split_decomposition_invariance():
     np.testing.assert_allclose(np.asarray(out.tracers),
                                np.asarray(ref.tracers),
                                rtol=1e-12, atol=1e-12)
-
-
-def test_bt_kernel_matches_scan(monkeypatch):
-    """The fused barotropic-subcycle kernel (all M subcycles in one
-    VMEM-resident Pallas launch, ops/barotropic_kernel.py; interpret
-    mode on CPU) reproduces the composed lax.scan subcycling exactly."""
-    mesh, cfg, st = _setup()
-    from omega_tpu.ops import barotropic_kernel as btk
-    assert btk.supported(mesh)
-    rng = np.random.default_rng(5)
-    st = ModelState(h=st.h,
-                    u=jnp.asarray(0.02 * rng.standard_normal(st.u.shape)),
-                    tracers=st.tracers)
-
-    monkeypatch.setenv("OMEGA_BT_KERNEL", "1")
-    fast = split_forward_backward_step(mesh, cfg, st, 0.0, 120.0,
-                                       n_subcycles=7, bt_drag=1e-4)
-    monkeypatch.setenv("OMEGA_BT_KERNEL", "0")
-    slow = split_forward_backward_step(mesh, cfg, st, 0.0, 120.0,
-                                       n_subcycles=7, bt_drag=1e-4)
-    for n in ("h", "u", "tracers"):
-        a, b = np.asarray(getattr(fast, n)), np.asarray(getattr(slow, n))
-        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-14,
-                                   err_msg=n)
-
-
-def test_split_megastep_matches_composed(monkeypatch):
-    """The fully fused split-explicit step (splitpre kernel -> resident
-    barotropic-subcycle kernel -> splitpost kernel, ops/megastep.py;
-    interpret mode on CPU) reproduces the composed
-    split_forward_backward_step to roundoff on the flagship column-ssh
-    configuration, via both the direct API and the run_steps scan."""
-    from omega_tpu.ops import megastep
-    from omega_tpu.stepping.steppers import make_stepper, run_steps
-
-    mesh = planar_hex_mesh(16, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=4, ntracers=2, ssh_formulation="column",
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert megastep.split_supported(mesh, cfg)
-    rng = np.random.default_rng(9)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 4) * jnp.ones((1, 4))
-    st = ModelState(
-        h=h, u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, 4))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells, 4))))
-
-    dt, nsteps = 60.0, 3
-    ref, out = st, st
-    for i in range(nsteps):
-        ref = split_forward_backward_step(mesh, cfg, ref, i * dt, dt,
-                                          n_subcycles=8, bt_drag=1e-4)
-        out = megastep.split_megastep(mesh, cfg, out, i * dt, dt,
-                                      n_subcycles=8, bt_drag=1e-4,
-                                      interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-    # run_steps' stacked scan path (OMEGA_MEGA_STEP forces it on CPU)
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "1")
-    from omega_tpu.stepping.split import make_split_stepper
-    scan_out = run_steps(mesh, cfg, st, 0.0, dt, nsteps,
-                         stepper=make_split_stepper(8, 1e-4))
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(scan_out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-def test_split_patch_megastep_matches_composed(monkeypatch):
-    """Sphere fused split-explicit (splitpre patch kernel -> flat 2-D
-    barotropic phase -> splitpost patch kernel,
-    ops/patch_megastep.split_patch_megastep_framed; interpret mode)
-    reproduces the composed split_forward_backward_step to roundoff on
-    the patch icos mesh, pole rows included, and conserves volume."""
-    from omega_tpu.core.state import ModelState as MS
-    from omega_tpu.mesh.icos_patches import patch_icos_mesh
-    from omega_tpu.mesh.spherical import spherical_icos_mesh
-    from omega_tpu.ops import patch_megastep
-
-    n, K, L = 8, 4, 1
-    mesh = patch_icos_mesh(spherical_icos_mesh(n), n)
-    cfg = ModelConfig(nvertlayers=K, ntracers=L, ssh_formulation="column",
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert patch_megastep.split_patch_supported(mesh, cfg)
-    rng = np.random.default_rng(19)
-    sshp = np.sin(2 * np.asarray(mesh.lat_cell))
-    d0 = float(np.asarray(mesh.bottom_depth)[0])
-    h = jnp.asarray((d0 + 100.0 * sshp[:, None]) / K) * jnp.ones((1, K))
-    u0 = 0.05 * rng.standard_normal((mesh.nedges, K)) \
-        * np.asarray(mesh.edge_mask)[:, None]
-    st = MS(h=h, u=jnp.asarray(u0),
-            tracers=jnp.asarray(10.0 + rng.standard_normal(
-                (L, mesh.ncells, K))))
-
-    dt, nsteps = 120.0, 2
-    # composed oracle (patch kernels off)
-    monkeypatch.setenv("OMEGA_PATCH_MEGA", "0")
-    ref, t = st, 0.0
-    for _ in range(nsteps):
-        ref = split_forward_backward_step(mesh, cfg, ref, t, dt,
-                                          n_subcycles=6, bt_drag=1e-4)
-        t += dt
-    monkeypatch.setenv("OMEGA_PATCH_MEGA", "1")
-
-    carry = patch_megastep.stack_frames(mesh, cfg, st)
-    t = 0.0
-    for _ in range(nsteps):
-        carry = patch_megastep.split_patch_megastep_framed(
-            mesh, cfg, carry, t, dt, K=K, L=L, n_subcycles=6,
-            bt_drag=1e-4, interpret=True)
-        t += dt
-    out = patch_megastep.unstack_frames(mesh, carry, K, L, MS)
-    for nm in ("h", "u", "tracers"):
-        a, b = np.asarray(getattr(out, nm)), np.asarray(getattr(ref, nm))
-        scale = np.max(np.abs(b)) + 1e-300
-        assert np.max(np.abs(a - b)) / scale < 1e-11, nm
-    area = np.asarray(mesh.area_cell)[:, None]
-    v0 = float(np.sum(np.asarray(st.h) * area))
-    v1 = float(np.sum(np.asarray(out.h) * area))
-    assert abs(v1 - v0) / v0 < 1e-13

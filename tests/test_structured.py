@@ -118,504 +118,3 @@ def test_momentum_aux_equivalence(mesh):
     for a, b in zip(jax.tree.leaves(fast), jax.tree.leaves(slow)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-11, atol=1e-12)
-
-
-def test_pallas_dma_kernel_matches_roll_path():
-    """The transpose-free DMA stencil kernel (interpret mode on CPU) is
-    exact against the roll path for every cached stencil, including
-    batched leading dims (on TPU it is bit-exact, validated on
-    hardware)."""
-    from omega_tpu.ops import structured
-    from omega_tpu.ops.pallas_stencil_dma import apply_stencil_dma
-
-    mesh = planar_hex_mesh(16, 8, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    rng = np.random.default_rng(0)
-    K = 5
-    keys = [k for k in structured._TABLE_CACHE
-            if isinstance(k, tuple) and len(k) == 4
-            and k[0] == 16 and k[1] == 8]
-    assert keys
-    for key in keys:
-        nm = key[3]
-        tab = structured._TABLE_CACHE[key]
-        t, dst, src = tab[:3]
-        if t is None:
-            continue
-        N = mesh.ncells * structured._NPER[src]
-        for lead in [(), (2,)]:
-            f = jnp.asarray(rng.standard_normal(lead + (N, K)))
-            ref = structured.apply_stencil(mesh, (t, dst, src), f)
-            out = apply_stencil_dma(mesh, nm, f, interpret=True)
-            np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                                       rtol=0, atol=1e-12,
-                                       err_msg=f"{nm} lead={lead}")
-
-
-def test_megastep_matches_composed_fb_step():
-    """The single-kernel mega-step (ops/megastep.py, interpret mode on
-    CPU) reproduces the composed forward_backward_step to roundoff over
-    multiple steps on the flagship configuration."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.ops.megastep import fb_megastep, supported
-    from omega_tpu.stepping import forward_backward_step
-
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert supported(mesh, cfg)
-    # unsupported configs must be detected (falls back to composed);
-    # upwind is fused since round 4, FCT since round 5 — but on the FB
-    # kernel only (the limiter needs the thickness-first update order)
-    cfg_fct = ModelConfig(nvertlayers=3, ntracers=2,
-                          flux_tracer_type="fct",
-                          tendencies=TendencyConfig(visc_del2=1e3,
-                                                    visc_del4=1e9))
-    assert supported(mesh, cfg_fct)
-    assert not supported(mesh, cfg_fct, kind="rk2")
-
-    rng = np.random.default_rng(0)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 3) * jnp.ones((1, 3))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, 3))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells, 3))))
-
-    ref, out = st, st
-    for _ in range(3):
-        ref = forward_backward_step(mesh, cfg, ref, 0.0, 30.0)
-        out = fb_megastep(mesh, cfg, out, 0.0, 30.0, interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-def test_rk2_megastep_matches_composed_rk2_step():
-    """The fused RK2 mega-step (both midpoint tendency chains in one
-    kernel, ring R_RK2 >= 12; interpret mode on CPU) reproduces the
-    composed rk2_step to roundoff over multiple steps."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.ops.megastep import rk2_megastep, supported
-    from omega_tpu.stepping import rk2_step
-
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert supported(mesh, cfg, kind="rk2")
-
-    rng = np.random.default_rng(3)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 3) * jnp.ones((1, 3))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, 3))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells, 3))))
-
-    ref, out = st, st
-    for _ in range(3):
-        ref = rk2_step(mesh, cfg, ref, 0.0, 30.0)
-        out = rk2_megastep(mesh, cfg, out, 0.0, 30.0, interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-def test_rk4_megastep_matches_composed_rk4_step():
-    """The four-stage RK4 mega-step (one radius-6 tendency chain per
-    kernel, (acc, prov) channels threaded between launches; interpret
-    mode on CPU) reproduces the composed rk4_step to roundoff."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.ops.megastep import rk4_megastep, supported
-    from omega_tpu.stepping import rk4_step
-
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert supported(mesh, cfg, kind="rk4")
-
-    rng = np.random.default_rng(4)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 3) * jnp.ones((1, 3))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, 3))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells, 3))))
-
-    ref, out = st, st
-    for _ in range(2):
-        ref = rk4_step(mesh, cfg, ref, 0.0, 30.0)
-        out = rk4_megastep(mesh, cfg, out, 0.0, 30.0, interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-@pytest.mark.parametrize("scheme", ["fb", "rk2", "rk4"])
-def test_megastep_parity_split(monkeypatch, scheme):
-    """OMEGA_MEGA_PARITY=1: rows deinterleave into even/odd channel
-    planes, so the hex stagger's per-row `where` select becomes one
-    static roll per destination plane (megastep._apply, even=None).
-    Results must match the composed steppers to roundoff."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.ops import megastep
-    from omega_tpu.stepping import forward_backward_step, rk2_step, rk4_step
-
-    monkeypatch.setenv("OMEGA_MEGA_PARITY", "1")
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert megastep.supported(mesh, cfg, kind="rk2" if scheme == "rk2"
-                              else "fb")
-
-    rng = np.random.default_rng(11)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 3) * jnp.ones((1, 3))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, 3))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells, 3))))
-
-    mega = {"fb": megastep.fb_megastep, "rk2": megastep.rk2_megastep,
-            "rk4": megastep.rk4_megastep}[scheme]
-    comp = {"fb": forward_backward_step, "rk2": rk2_step,
-            "rk4": rk4_step}[scheme]
-    ref, out = st, st
-    for _ in range(2):
-        ref = comp(mesh, cfg, ref, 0.0, 30.0)
-        out = mega(mesh, cfg, out, 0.0, 30.0, interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-@pytest.mark.parametrize("scheme", ["fb", "rk2"])
-def test_megastep_upwind_fluxes_match_composed(scheme):
-    """Upwind thickness AND tracer fluxes fused in-kernel (the
-    reference's FluxThicknessType/FluxTracerType 'Upwind' options,
-    LayerThicknessAuxVars.h / TracerAuxVars.h pair-selection): exact vs
-    the composed steppers."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.ops import megastep
-    from omega_tpu.stepping import forward_backward_step, rk2_step
-
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    K = 3
-    cfg = ModelConfig(nvertlayers=K, ntracers=2,
-                      flux_thickness_type="upwind",
-                      flux_tracer_type="upwind",
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert megastep.supported(mesh, cfg,
-                              kind="rk2" if scheme == "rk2" else "fb")
-
-    rng = np.random.default_rng(37)
-    kx = 2 * np.pi / mesh.x_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / K) * jnp.ones((1, K))
-    st = ModelState(
-        h=h, u=jnp.asarray(0.1 * rng.standard_normal((mesh.nedges, K))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells,
-                                                        K))))
-    mega = {"fb": megastep.fb_megastep,
-            "rk2": megastep.rk2_megastep}[scheme]
-    comp = {"fb": forward_backward_step, "rk2": rk2_step}[scheme]
-    ref, out = st, st
-    for _ in range(2):
-        ref = comp(mesh, cfg, ref, 0.0, 30.0)
-        out = mega(mesh, cfg, out, 0.0, 30.0, interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-def test_megastep_pp81_vmix_matches_composed(monkeypatch):
-    """PP81 (Richardson-number) vertical mixing fused in-kernel: the
-    coefficient fields (shear from the kite-weighted KE of the vertical
-    velocity difference, N^2 from the linear-EOS T/S slopes,
-    core/vmix.pp81_coefficients) are one more radius-1 sweep over the
-    updated state, then the same lane-axis PCR — exact vs the composed
-    stepper's _mix."""
-    from omega_tpu.core import (ModelConfig, ModelState, TendencyConfig,
-                                VertMixConfig)
-    from omega_tpu.ops import megastep
-    from omega_tpu.stepping import forward_backward_step
-
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    K = 5
-    cfg = ModelConfig(
-        nvertlayers=K, ntracers=2,
-        vert_mix=VertMixConfig(enabled=True, scheme="pp81",
-                               nu0=1e-2, alpha=5.0, n_exp=2,
-                               temp_index=0, salt_index=1),
-        tendencies=TendencyConfig(visc_del2=1e3, visc_del4=1e9,
-                                  wind_forcing=True, bottom_drag=True,
-                                  bottom_drag_coeff=3.0e-3))
-    assert megastep.supported(mesh, cfg)
-
-    rng = np.random.default_rng(31)
-    kx = 2 * np.pi / mesh.x_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / K) * jnp.ones((1, K))
-    # stratified T/S + sheared u so Ri spans stable and unstable
-    T = 10.0 + 2.0 * np.arange(K)[::-1] / K \
-        + 0.1 * rng.standard_normal((mesh.ncells, K))
-    S = 35.0 + 0.1 * rng.standard_normal((mesh.ncells, K))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.1 * rng.standard_normal((mesh.nedges, K))),
-        tracers=jnp.asarray(np.stack([T, S])))
-    wind = (jnp.asarray(0.1 * np.ones(mesh.ncells)),
-            jnp.asarray(0.02 * np.ones(mesh.ncells)))
-
-    ref, out = st, st
-    for _ in range(2):
-        ref = forward_backward_step(mesh, cfg, ref, 0.0, 30.0,
-                                    wind_stress=wind)
-        out = megastep.fb_megastep(mesh, cfg, out, 0.0, 30.0,
-                                   interpret=True, wind_stress=wind)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-@pytest.mark.parametrize("scheme", ["fb", "rk2", "rk4"])
-@pytest.mark.parametrize("parity", ["0", "1"])
-def test_megastep_physics_wind_drag_vmix(monkeypatch, scheme, parity):
-    """The Omega-1 science configuration — wind forcing, quadratic
-    bottom drag (TendencyTerms.h:281-340) and constant-coefficient
-    implicit vertical mixing (base/TriDiagSolvers.h PCR) — runs INSIDE
-    the mega kernels (round-4): supported() accepts it and the fused
-    result matches the composed steppers to roundoff, in both row
-    layouts."""
-    from omega_tpu.core import (ModelConfig, ModelState, TendencyConfig,
-                                VertMixConfig)
-    from omega_tpu.ops import megastep
-    from omega_tpu.stepping import forward_backward_step, rk2_step, rk4_step
-
-    monkeypatch.setenv("OMEGA_MEGA_PARITY", parity)
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    K = 4
-    cfg = ModelConfig(
-        nvertlayers=K, ntracers=2,
-        vert_mix=VertMixConfig(enabled=True, kappa_tracer=1e-3,
-                               kappa_momentum=1e-2),
-        tendencies=TendencyConfig(visc_del2=1e3, visc_del4=1e9,
-                                  wind_forcing=True,
-                                  bottom_drag=True,
-                                  bottom_drag_coeff=3.0e-3))
-    assert megastep.supported(mesh, cfg, kind="rk2" if scheme == "rk2"
-                              else "fb")
-    # the Thomas method stays composed (PP81 is fused since round 4)
-    import dataclasses
-    cfg_th = dataclasses.replace(cfg, vert_mix=dataclasses.replace(
-        cfg.vert_mix, method="thomas"))
-    assert not megastep.supported(mesh, cfg_th)
-
-    rng = np.random.default_rng(23)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / K) * jnp.ones((1, K))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, K))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells,
-                                                        K))))
-    wind = (jnp.asarray(0.1 * np.sin(ky * np.asarray(mesh.y_cell))),
-            jnp.asarray(0.05 * np.ones(mesh.ncells)))
-
-    mega = {"fb": megastep.fb_megastep, "rk2": megastep.rk2_megastep,
-            "rk4": megastep.rk4_megastep}[scheme]
-    comp = {"fb": forward_backward_step, "rk2": rk2_step,
-            "rk4": rk4_step}[scheme]
-    ref, out = st, st
-    for _ in range(2):
-        ref = comp(mesh, cfg, ref, 0.0, 30.0, wind_stress=wind)
-        out = mega(mesh, cfg, out, 0.0, 30.0, interpret=True,
-                   wind_stress=wind)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-    # the bottom layer actually decelerated (drag active) and the top
-    # layer picked up wind momentum
-    assert float(jnp.abs(out.u[:, -1]).max()) > 0
-    assert float(jnp.abs(out.u[:, 0] - st.u[:, 0]).max()) > 0
-
-
-def test_megastep_run_steps_physics_fast_path(monkeypatch):
-    """run_steps' stacked scan fast path engages for the science config
-    (wind packed once per segment) and matches per-step composed calls."""
-    from omega_tpu.core import (ModelConfig, ModelState, TendencyConfig,
-                                VertMixConfig)
-    from omega_tpu.stepping import forward_backward_step, run_steps
-
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "1")
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    K = 3
-    cfg = ModelConfig(
-        nvertlayers=K, ntracers=1,
-        vert_mix=VertMixConfig(enabled=True),
-        tendencies=TendencyConfig(visc_del2=1e3, visc_del4=1e9,
-                                  wind_forcing=True, bottom_drag=True,
-                                  bottom_drag_coeff=1e-3))
-    rng = np.random.default_rng(29)
-    kx = 2 * np.pi / mesh.x_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / K) * jnp.ones((1, K))
-    st = ModelState(
-        h=h, u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, K))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((1, mesh.ncells,
-                                                        K))))
-    wind = (jnp.asarray(0.1 * np.ones(mesh.ncells)),
-            jnp.asarray(0.02 * np.ones(mesh.ncells)))
-    out = run_steps(mesh, cfg, st, 0.0, 30.0, 3, wind_stress=wind)
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "0")
-    ref = run_steps(mesh, cfg, st, 0.0, 30.0, 3, wind_stress=wind)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-def test_megastep_interior_fast_path_tiles():
-    """A mesh with >2 tiles per axis exercises the kernel's interior
-    single-rectangle DMA branch alongside the 9-rect wrap branch."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.ops.megastep import fb_megastep, supported
-    from omega_tpu.stepping import forward_backward_step
-
-    mesh = planar_hex_mesh(64, 48, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=2, ntracers=1,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert supported(mesh, cfg)
-    rng = np.random.default_rng(7)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 2) * jnp.ones((1, 2))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, 2))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((1, mesh.ncells, 2))))
-    ref = forward_backward_step(mesh, cfg, st, 0.0, 30.0)
-    out = fb_megastep(mesh, cfg, st, 0.0, 30.0, interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-def test_megastep_run_steps_stacked_carry(monkeypatch):
-    """run_steps' stacked fast path (scan carry = the kernel's stacked
-    (CH, ny, nx, K128) array, one kernel launch per step) matches the
-    composed scan over multiple steps."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.stepping import forward_backward_step, run_steps
-
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "1")
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    rng = np.random.default_rng(1)
-    kx = 2 * np.pi / mesh.x_period
-    ky = 2 * np.pi / mesh.y_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell)) * \
-        np.sin(ky * np.asarray(mesh.y_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 3) * jnp.ones((1, 3))
-    st = ModelState(
-        h=h,
-        u=jnp.asarray(0.01 * rng.standard_normal((mesh.nedges, 3))),
-        tracers=jnp.asarray(10.0 + rng.standard_normal((2, mesh.ncells, 3))))
-
-    out = run_steps(mesh, cfg, st, 0.0, 30.0, 3)
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "0")
-    ref = run_steps(mesh, cfg, st, 0.0, 30.0, 3)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-    # the RK2 stacked fast path rides the same carry machinery
-    from omega_tpu.stepping import rk2_step
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "1")
-    out = run_steps(mesh, cfg, st, 0.0, 30.0, 3, stepper=rk2_step)
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "0")
-    ref = run_steps(mesh, cfg, st, 0.0, 30.0, 3, stepper=rk2_step)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-
-
-def test_megastep_fct_matches_composed():
-    """Zalesak FCT tracer fluxes fused in the planar FB kernel
-    (ops/megastep._fct_adv) equal the composed core/fct.py path to
-    rounding, and the monotonicity contract holds: advecting a 0/1
-    step-function tracer creates no new extrema."""
-    from omega_tpu.core import ModelConfig, ModelState, TendencyConfig
-    from omega_tpu.ops import megastep
-    from omega_tpu.stepping import forward_backward_step
-
-    mesh = planar_hex_mesh(32, 16, dc=5000.0, f0=1e-4,
-                           bottom_depth=1000.0)
-    K = 3
-    cfg = ModelConfig(nvertlayers=K, ntracers=2,
-                      flux_tracer_type="fct",
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9,
-                                                eddy_diff2=0.0,
-                                                eddy_diff4=0.0))
-    assert megastep.supported(mesh, cfg)
-    assert not megastep.supported(mesh, cfg, kind="rk2")
-
-    rng = np.random.default_rng(11)
-    kx = 2 * np.pi / mesh.x_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / K) * jnp.ones((1, K))
-    step_tr = (np.asarray(mesh.x_cell) > mesh.x_period / 2).astype(float)
-    tr = np.stack([np.broadcast_to(step_tr[:, None], (mesh.ncells, K)),
-                   10.0 + rng.standard_normal((mesh.ncells, K))])
-    st = ModelState(
-        h=h, u=jnp.asarray(0.5 * rng.standard_normal((mesh.nedges, K))),
-        tracers=jnp.asarray(tr))
-
-    ref, out = st, st
-    for _ in range(2):
-        ref = forward_backward_step(mesh, cfg, ref, 0.0, 30.0)
-        out = megastep.fb_megastep(mesh, cfg, out, 0.0, 30.0,
-                                   interpret=True)
-    for n in ("h", "u", "tracers"):
-        np.testing.assert_allclose(np.asarray(getattr(out, n)),
-                                   np.asarray(getattr(ref, n)),
-                                   rtol=1e-10, atol=1e-10, err_msg=n)
-    # monotone: the step tracer stays in [0, 1] through both paths
-    for sol in (out, ref):
-        t0 = np.asarray(sol.tracers)[0]
-        assert t0.min() >= -1e-12 and t0.max() <= 1.0 + 1e-12

@@ -153,44 +153,3 @@ def test_exchange_every_amortized_halos():
                                rtol=0, atol=1e-12)
     np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
                                rtol=0, atol=1e-12)
-
-
-def test_megastep_under_sharding(monkeypatch):
-    """The mega-step kernel inside shard_map (forced on via
-    OMEGA_MEGA_STEP, interpret mode on CPU) matches the single-device
-    composed run: per-shard wrap garbage stays in the halo ring."""
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "1")
-    from omega_tpu.core import ModelConfig, TendencyConfig
-    from omega_tpu.ops.megastep import supported
-    from omega_tpu.stepping import forward_backward_step
-
-    mesh = planar_hex_mesh(32, 32, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
-    cfg = ModelConfig(nvertlayers=3, ntracers=2,
-                      tendencies=TendencyConfig(visc_del2=1e3,
-                                                visc_del4=1e9))
-    assert supported(mesh, cfg)
-    kx = 2 * np.pi / mesh.x_period
-    ssh = np.sin(kx * np.asarray(mesh.x_cell))
-    h = jnp.asarray((1000.0 + ssh[:, None]) / 3) * jnp.ones((1, 3))
-    st = ModelState(h=h, u=jnp.zeros((mesh.nedges, 3)),
-                    tracers=10.0 + jnp.zeros((2, mesh.ncells, 3)))
-    nst, dt = 2, 60.0
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "0")
-    ref = st
-    for _ in range(nst):
-        ref = forward_backward_step(mesh, cfg, ref, 0.0, dt)
-    monkeypatch.setenv("OMEGA_MEGA_STEP", "1")
-
-    ss = sshard.decompose_structured(mesh, 2)
-    step = jax.jit(sshard.make_sharded_step(
-        ss, cfg, forward_backward_step, default_device_mesh(2)))
-    sst = sshard.shard_state(ss, st)
-    t = 0.0
-    for _ in range(nst):
-        sst = step(sst, t, dt)
-        t += dt
-    out = sshard.gather_state(ss, sst)
-    np.testing.assert_allclose(np.asarray(out.h), np.asarray(ref.h),
-                               rtol=0, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
-                               rtol=0, atol=1e-10)
